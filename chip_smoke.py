@@ -19,7 +19,6 @@ limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
-import argparse
 import dataclasses
 import json
 import statistics
@@ -167,7 +166,7 @@ def _bytes_ops(name, js, M, Nc, Np, P):
     return nbytes, ops
 
 
-def phase_kernels(timer, pt_div):
+def phase_kernels(timer):
     """Each kernel against its plain version, f32 and bf16, both
     layouts, at every shape; the kernel's and the plain version's
     median ms (L2 flushed before each call), and the kernel's wrapper
@@ -175,7 +174,6 @@ def phase_kernels(timer, pt_div):
     results = {}
     P = 1
     for shape, Nc, Np, opp in SHAPES:
-        Np //= pt_div
         g = np.random.default_rng(11)
         obs_cam, obs_pt = _ids(g, Nc, Np, opp)
         M = obs_pt.size
@@ -311,9 +309,9 @@ def _profile(prob, opts):
              for k, (us, n) in top])
 
 
-def phase_ba_main(pt_div):
+def phase_ba_main():
     t0 = time.perf_counter()
-    prob = make_problem(550, 140_000 // pt_div, 4, torch.float32, "cuda",
+    prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
                         perturb_seed=7)
     prob = ba.add_pallas_matvec_plan(ba.pad_obs_to_multiple(prob, 1024),
                                      block=1024)
@@ -387,21 +385,15 @@ def phase_bucketed():
 # ----------------------------------------------------------------- main
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--quick", action="store_true",
-                    help="a first check: every shape with 1/20 of its "
-                    "points (same cameras and widths)")
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     torch.manual_seed(0)
-    pt_div = 20 if args.quick else 1
     timer_start = time.perf_counter()
     phase_env()
     timer = Timer()
-    kres = phase_kernels(timer, pt_div)
-    runs = phase_ba_main(pt_div)
+    kres = phase_kernels(timer)
+    runs = phase_ba_main()
     phase_bucketed()
 
     summary = []
