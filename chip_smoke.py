@@ -4,18 +4,27 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ (nvcc, at first use), holds each kernel
-against its plain PyTorch version on the card, runs the bundle adjuster's
-main path (the Schur-PCG LM solve at the 1DSfM Notre-Dame scale: 550
-cameras, 140k points, 560k observations, the `pcg_fast_pt` options of
-scripts/bench_probe.py) and the bucketed entry point, and checks the
-results. Every phase prints one JSON line; any failure raises, and the
-script exits non-zero without printing a result. It imports neither JAX
-nor the JAX package. Without a CUDA device it fails at once.
+against its plain PyTorch version on the card, and drives the port's two
+main paths:
+
+* the bundle adjuster (the Schur-PCG LM solve at the 1DSfM Notre-Dame
+  scale: 550 cameras, 140k points, 560k observations, the `pcg_fast_pt`
+  options of scripts/bench_probe.py) and its bucketed entry point;
+* the feature front end: 8 synthetic 640x480 views -> SIFT (default
+  options) -> the batched top-2 matcher on all 28 pairs -> putative
+  matches in the features-and-matches database (no geometric
+  verification), checked against the views' ground-truth epipolar
+  geometry.
+
+Every phase prints one JSON line; any failure raises, and the script
+exits non-zero without printing a result. It imports neither JAX nor the
+JAX package. Without a CUDA device it fails at once.
 
 The last three lines are the `kernels` summary (one entry per replaced
 TPU kernel: launches on its path, error against the plain version, its
-time, the plain version's time and the bound), the card's name and power
-limit from nvidia-smi, and {"ok": true, "device": {...}}.
+time, the plain version's time, the library yardstick's time where one
+PyTorch call computes the same product, and the bound), the card's name
+and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -31,10 +40,17 @@ import torch
 
 from theiasfm_tpu_torch import _kernels
 from theiasfm_tpu_torch.bench_problem import make_problem
+from theiasfm_tpu_torch.convert import features_db_from_arrays
+from theiasfm_tpu_torch.image import (SiftOptions, extract_sift,
+                                      extract_sift_batch,
+                                      render_synthetic_views)
+from theiasfm_tpu_torch.matching import FeatureMatcher, FeatureMatcherOptions
+from theiasfm_tpu_torch.matching import fused_matcher as tfm
 from theiasfm_tpu_torch.sfm.ba import BAOptions, bundle_adjust
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
-from theiasfm_tpu_torch.utils import dispatch_counts, reset_dispatch_counts
+from theiasfm_tpu_torch.utils import (dispatch_counts, next_bucket,
+                                      reset_dispatch_counts)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the f32
 # rate outside the tensor cores (the kernels multiply in f32)
@@ -128,7 +144,8 @@ def phase_env():
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32)
     t0 = time.perf_counter()
     info = _kernels.build()
-    _kernels.library()
+    for stem in info:
+        _kernels.library(stem)
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for v in info.values()
              for ln in v["ptxas"].splitlines()
@@ -268,25 +285,24 @@ def _solve(prob, opts):
     return out, s, sec, counts
 
 
-def _profile(prob, opts):
-    """Over one short solve (torch.profiler, CPU and CUDA activity): the
+def _profile(fn, prefix):
+    """Over one call of fn (torch.profiler, CPU and CUDA activity): the
     device's busy and idle share (device-side events only, so an op and
     its kernel are not counted twice), device time by kernel, and host
-    and device time by solver phase (the "ba.*" ranges of
-    bundle_adjust)."""
+    and device time by the profiler ranges whose names start with
+    `prefix`. Returns (fn's result, the summary)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        _, s = bundle_adjust(prob, opts)
-        float(s.final_cost)
+        out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kernels, phases = {}, {}
     for ev in prof.events():
-        if ev.name.startswith("ba."):
+        if ev.name.startswith(prefix):
             if ev.device_type == DeviceType.CPU:
                 ph = phases.setdefault(ev.name, [0.0, 0.0, 0])
                 ph[0] += ev.cpu_time_total
@@ -298,8 +314,8 @@ def _profile(prob, opts):
             k[1] += 1
     busy_us = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
-    return dict(
-        iterations=s.num_iterations, wall_s=wall,
+    return out, dict(
+        wall_s=wall,
         device_busy_s=busy_us / 1e6 if kernels else "not measured",
         device_idle_share=(1 - busy_us / 1e6 / wall) if kernels
         else "not measured",
@@ -360,8 +376,10 @@ def phase_ba_main():
          plain_trace=s_p.cost_trace.tolist())
     check(rel <= 1e-3, f"kernel and plain solves disagree: {ck} vs {cp}")
 
-    emit("ba_profile", config="pcg_fast_pt",
-         **_profile(prob, dataclasses.replace(FAST_PT, max_iterations=3)))
+    s, prof = _profile(lambda: bundle_adjust(
+        prob, dataclasses.replace(FAST_PT, max_iterations=3))[1], "ba.")
+    emit("ba_profile", config="pcg_fast_pt", iterations=s.num_iterations,
+         **prof)
     return runs
 
 
@@ -382,6 +400,297 @@ def phase_bucketed():
          launches={k: counts[k] for k in ("schur_pass1", "schur_pass2")})
 
 
+# ------------------------------------------------------ matcher_kernels
+
+MATCH_SOURCE = "theiasfm_tpu_torch/csrc/top2_match.cu"
+MATCHER = "theiasfm_tpu/matching/pallas_matcher.py"
+RATIO = 0.8
+# (name, pairs B, padded rows N, D, valid rows per pair lo..hi)
+MATCH_SHAPES = [("frontend", 28, 2048, 128, 1400, 1600),
+                ("unbatched_8192", 1, 8192, 128, 8192, 8192),
+                ("ragged", 3, 200, 32, 150, 200)]
+
+
+def _desc_stack(g, B, N, D, lo, hi):
+    """B pairs of SIFT-like descriptor stacks (non-negative, unit rows)
+    padded with zeros to N rows, lo..hi valid rows each; half of each
+    pair's keys are noisy copies of its queries, so the ratio test
+    passes on some rows and fails on others."""
+    d = np.zeros((2, B, N, D), np.float32)
+    m = np.zeros((2, B, N), bool)
+    for b in range(B):
+        n1, n2 = g.integers(lo, hi + 1, 2)
+        a = np.abs(g.normal(size=(n1, D)))
+        k = np.abs(g.normal(size=(n2, D)))
+        share = min(n1, n2) // 2
+        k[:share] = a[g.permutation(n1)[:share]] + \
+            0.3 * np.abs(g.normal(size=(share, D)))
+        for i, (x, n) in enumerate(((a, n1), (k, n2))):
+            d[i, b, :n] = x / np.linalg.norm(x, axis=1, keepdims=True)
+            m[i, b, :n] = True
+    t = [torch.from_numpy(x).cuda() for x in (d[0], d[1], m[0], m[1])]
+    return t
+
+
+def _near_tie(best, second):
+    return (second - best).abs() <= 1e-5 * best.abs()
+
+
+def _check_top2(what, got, ref):
+    """idx identical except at near-ties; best and second to 1e-5 of the
+    largest entry. Returns (max abs err, idx mismatches at near-ties)."""
+    (gb, gs, gi), (rb, rs, ri) = got, ref
+    tie = _near_tie(rb, rs)
+    bad = int(((gi != ri) & ~tie).sum())
+    check(bad == 0, f"{what}: {bad} idx differ away from a near-tie")
+    err = max((gb - rb).abs().max().item(), (gs - rs).abs().max().item())
+    scale = max(rb.abs().max().item(), rs.abs().max().item())
+    check(err <= 1e-5 * scale, f"{what}: max abs err {err} > 1e-5*{scale}")
+    for x in got:
+        check(bool(torch.isfinite(x.float()).all()), f"{what}: not finite")
+    return err, int(((gi != ri) & tie).sum())
+
+
+def _check_wrapper(what, got, ref, fwd, rev=None):
+    """A fused wrapper on the kernel route against the same wrapper on
+    the plain route (CPU tensors): idx as _check_top2; best to 1e-5 of
+    the largest entry; valid identical except where the ratio is within
+    1e-5 of lowes_ratio² or an idx sits on a near-tie (forward, or in
+    the reverse pass the back-check reads), on at most 0.1% of rows.
+    fwd/rev: plain (best, second) of each direction with ||a||² added."""
+    gi, gv, gb = got
+    ri, rv, rb = (x.cuda() for x in ref)
+    tie = _near_tie(*fwd)
+    check(bool(((gi == ri) | tie).all()), f"{what}: idx differ")
+    err = (gb - rb).abs().max().item()
+    check(err <= 1e-5 * rb.abs().max().item(), f"{what}: best err {err}")
+    diff = gv != rv
+    ok = ((fwd[0] / fwd[1] - RATIO ** 2).abs() <= 1e-5) | tie
+    if rev is not None:
+        ok = ok | _near_tie(*rev).gather(-1, gi.long())
+    n_diff = int(diff.sum())
+    check(bool((~diff | ok).all()) and n_diff <= 1e-3 * diff.numel(),
+          f"{what}: {n_diff} valid rows differ")
+    return err, n_diff
+
+
+def _plain_full(d1, d2, n2m):
+    """The plain (best, second) with ||a||² added, for the tolerances."""
+    b, s, _ = tfm.top2_plain(d1, d2, n2m)
+    n1 = (d1 * d1).sum(-1)
+    return (b + n1).clamp_min(0), (s + n1).clamp_min(0)
+
+
+def phase_matcher_kernels(timer):
+    """top2_match against top2_plain on the card at each shape, then the
+    fused wrappers on the kernel route against the same wrappers on the
+    plain route; median ms of 20 calls (L2 flushed) of the kernel, the
+    plain version and torch.bmm of the same product (TF32 off)."""
+    results = {}
+    for shape, B, N, D, lo, hi in MATCH_SHAPES:
+        g = np.random.default_rng(21)
+        d1, d2, m1, m2 = _desc_stack(g, B, N, D, lo, hi)
+        n2m = torch.where(m2, (d2 * d2).sum(-1), 1e30)
+        n1m = torch.where(m1, (d1 * d1).sum(-1), 1e30)
+        ref = tfm.top2_plain(d1, d2, n2m)
+        got = tfm.top2(d1, d2, n2m)
+        torch.cuda.synchronize()
+        err, ties = _check_top2(shape, got, ref)
+
+        fwd = _plain_full(d1, d2, n2m)
+        cpu = [x.cpu() for x in (d1, d2, m1, m2)]
+        if B == 1:
+            w_got = tfm.match_descriptors_fused(d1[0], d2[0], m1[0], m2[0])
+            w_ref = tfm.match_descriptors_fused(*(x[0] for x in cpu))
+            w_err, w_diff = _check_wrapper(
+                f"{shape} match_descriptors_fused",
+                [x[None] for x in w_got], [x[None] for x in w_ref], fwd)
+        else:
+            rev = _plain_full(d2, d1, n1m)
+            w_got = tfm.match_descriptors_fused_batch(d1, d2, m1, m2)
+            w_ref = tfm.match_descriptors_fused_batch(*cpu)
+            w_err, w_diff = _check_wrapper(
+                f"{shape} match_descriptors_fused_batch", w_got, w_ref,
+                fwd, rev)
+        n_valid = int(w_got[1].sum())
+
+        ops = 2 * B * N * N * D
+        nbytes = 4 * (2 * B * N * D + B * N) + 12 * B * N
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        d2t = d2.transpose(1, 2)
+        rec = dict(
+            kernel="top2_match", shape=shape, B=B, M=N, N=N, D=D,
+            valid_rows=f"{lo}..{hi}", max_abs_err=err,
+            idx_diff_at_near_ties=ties, wrapper_max_abs_err=w_err,
+            wrapper_valid_rows_differing=w_diff, wrapper_valid=n_valid,
+            tol="idx except near-ties; best/second 1e-5 of max; valid "
+                "except |ratio-0.64|<=1e-5 on <=0.1%",
+            ms=timer.ms(lambda: tfm.top2(d1, d2, n2m)),
+            plain_ms=timer.ms(lambda: tfm.top2_plain(d1, d2, n2m)),
+            library_ms=timer.ms(lambda: torch.bmm(d1, d2t)),
+            ops=ops, bytes=nbytes, bound_ms=max(t_ops, t_bytes),
+            bound_by="operations" if t_ops >= t_bytes else "bytes")
+        rec["ms_back_to_back"] = timer.ms(
+            lambda: tfm.top2(d1, d2, n2m), cold=False)
+        emit("matcher_kernels", **rec)
+        results[shape] = rec
+        del d1, d2, m1, m2, n1m, n2m, ref, got, fwd, cpu, w_got, w_ref
+        torch.cuda.empty_cache()
+    return results
+
+
+# ------------------------------------------------------------- frontend
+
+N_VIEWS = 8
+
+
+def _texture(seed=0):
+    """Band-limited noise: sum over s of s·gaussian_filter(N(0,1), s)
+    for s = 1, 2, 4, 8 (a fresh draw per scale), scaled to [0, 1]."""
+    from scipy import ndimage
+    g = np.random.default_rng(seed)
+    tex = sum(s * ndimage.gaussian_filter(g.normal(size=(768, 1024)), s)
+              for s in (1, 2, 4, 8))
+    return (tex - tex.min()) / (tex.max() - tex.min())
+
+
+def _epipolar_px(corr, cam1, cam2):
+    """Distance (px) of each match's second point from the epipolar line
+    of its first, under the ground-truth cameras (x_cam = R X + t).
+    Keypoints index pixels; synth.py samples pixel centres, so +0.5."""
+    R = cam2["R"] @ cam1["R"].T
+    t = cam2["t"] - R @ cam1["t"]
+    tx = np.array([[0, -t[2], t[1]], [t[2], 0, -t[0]], [-t[1], t[0], 0]])
+    Kinv = np.linalg.inv(cam1["K"])
+    F = np.linalg.inv(cam2["K"]).T @ tx @ R @ Kinv
+    x1 = np.concatenate([corr[:, :2] + 0.5, np.ones((len(corr), 1))], 1)
+    x2 = np.concatenate([corr[:, 2:] + 0.5, np.ones((len(corr), 1))], 1)
+    lines = x1 @ F.T
+    return np.abs((x2 * lines).sum(1)) / np.hypot(lines[:, 0], lines[:, 1])
+
+
+def _kp_agree(a, b, tol=1e-2):
+    """Share of a's valid keypoints with one of b's within tol px."""
+    pa, pb = a[0][a[2], :2], b[0][b[2], :2]
+    d = np.linalg.norm(pa[:, None] - pb[None], axis=-1)
+    return float(np.mean(d.min(1) <= tol))
+
+
+def phase_frontend():
+    """The front end at full width: 8 views of 640x480, SIFT with the
+    default options (4 octaves, 1024 features per octave), the batched
+    matcher on all 28 pairs (one chunk), putative matches stored."""
+    t0 = time.perf_counter()
+    views, cams = render_synthetic_views(_texture(0), N_VIEWS, (640, 480),
+                                         focal=600.0)
+    names = [f"view{i:03d}" for i in range(N_VIEWS)]
+    setup_s = time.perf_counter() - t0
+    opts = SiftOptions()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_dispatch_counts()
+    feats, cold_s = sync_time(lambda: extract_sift_batch(views, opts,
+                                                     device="cuda"))
+    n_feat = [int(v.sum()) for _, _, v in feats]
+    max_n = next_bucket(max(n_feat), 128)
+    check(max_n == 2048, f"frontend: max_n {max_n} != 2048 ({n_feat}): "
+          "the batched matcher would not route to the kernel")
+    arrays = {n: (k[v], d[v]) for n, (k, d, v) in zip(names, feats)}
+    priors = {n: dict(image_width=640, image_height=480, focal_length=600.0,
+                      principal_point=(320.0, 240.0)) for n in names}
+
+    def match_all():
+        db = features_db_from_arrays(arrays, priors)
+        fm = FeatureMatcher(FeatureMatcherOptions(
+            perform_geometric_verification=False), db, device="cuda")
+        fm.add_images(names)
+        return fm.match_images(), db
+
+    (n_pairs, db), match_s = sync_time(match_all)
+    counts = dispatch_counts()
+    check(counts == {"top2_match": 2},
+          f"frontend: launches {counts}, expected 2 top2_match")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(n_pairs == len(db.image_pairs_of_matches()),
+          "frontend: stored pair count")
+
+    warm = []
+    for _ in range(3):
+        _, sec = sync_time(lambda: extract_sift_batch(views, opts,
+                                                     device="cuda"))
+        warm.append(sec)
+    match_warm = []
+    for _ in range(3):
+        reset_dispatch_counts()
+        _, sec = sync_time(match_all)
+        check(dispatch_counts() == {"top2_match": 2},
+              "frontend: top2_match launches per match_images != 2")
+        match_warm.append(sec)
+
+    # where the time goes: one warm SIFT call and one match_images
+    _, sift_prof = _profile(lambda: extract_sift_batch(
+        views, opts, device="cuda"), "sift.")
+    emit("frontend_profile", stage="sift", **sift_prof)
+    _, match_prof = _profile(match_all, "match.")
+    emit("frontend_profile", stage="match_images", **match_prof)
+
+    per_pair, shares = {}, {}
+    for (a, b) in db.image_pairs_of_matches():
+        m = db.get_match(a, b)
+        i, j = names.index(a), names.index(b)
+        dist = _epipolar_px(m.correspondences, cams[i], cams[j])
+        per_pair[f"{i}-{j}"] = len(m.correspondences)
+        shares[f"{i}-{j}"] = float(np.mean(dist <= 2.0))
+    adjacent = [f"{i}-{i + 1}" for i in range(N_VIEWS - 1)]
+    for p in adjacent:
+        check(per_pair.get(p, 0) >= 30,
+              f"frontend: adjacent pair {p} stored {per_pair.get(p, 0)}")
+        check(shares[p] >= 0.8, f"frontend: pair {p}: only {shares[p]:.3f}"
+              " of putative matches within 2 px of the epipolar line")
+
+    # the card's SIFT against the port's SIFT on the CPU, view 0
+    cpu0, cpu_s = sync_time(lambda: extract_sift(views[0], opts,
+                                                 device="cpu"))
+    agree = (_kp_agree(feats[0], cpu0), _kp_agree(cpu0, feats[0]))
+    check(min(agree) >= 0.99, f"frontend: card vs CPU SIFT {agree}")
+
+    # one pair through the unbatched entry point, as a user matches a
+    # single pair (symmetry composed from a reverse call): the matches
+    # the batched run stored for the pair, but for rows whose ratio test
+    # the padded batch's other float32 norms may flip (at most 1%)
+    (k0, d0), (k1, d1) = arrays[names[0]], arrays[names[1]]
+    a, b = torch.from_numpy(d0).cuda(), torch.from_numpy(d1).cuda()
+    reset_dispatch_counts()
+    idx, valid, _ = tfm.match_descriptors_fused(a, b)
+    ridx, _, _ = tfm.match_descriptors_fused(b, a)
+    pair_counts = dispatch_counts()
+    check(pair_counts == {"top2_match": 2},
+          f"frontend pair: launches {pair_counts}")
+    valid = valid & (ridx[idx.long()] == torch.arange(len(a), device="cuda",
+                                                      dtype=ridx.dtype))
+    sel = torch.nonzero(valid)[:, 0].cpu().numpy()
+    corr = np.concatenate([k0[sel, :2], k1[idx.cpu().numpy()[sel], :2]], 1)
+    stored = db.get_match(names[0], names[1]).correspondences
+    n_sym = len({tuple(r) for r in corr} ^ {tuple(r) for r in stored})
+    check(n_sym <= 0.01 * len(stored),
+          f"frontend pair: unbatched and batched differ in {n_sym} rows")
+
+    emit("frontend", views=N_VIEWS, size=[640, 480], sift="SiftOptions()",
+         setup_s=setup_s, features_per_view=n_feat, max_n=max_n,
+         sift_cold_s=cold_s, sift_ms_per_image=statistics.median(warm) /
+         N_VIEWS * 1e3, sift_warm_s=warm, pairs_stored=n_pairs,
+         matcher_ms_per_chunk=statistics.median(match_warm) * 1e3,
+         matcher_first_s=match_s, matcher_warm_s=match_warm,
+         putative_per_pair=per_pair, epipolar_share_2px=shares,
+         epipolar_share_adjacent_min=min(shares[p] for p in adjacent),
+         launches=counts, pair_launches=pair_counts,
+         pair_rows_differing=n_sym,
+         card_vs_cpu_sift=list(agree), cpu_sift_s=cpu_s,
+         peak_device_gib=peak)
+    return counts["top2_match"], pair_counts["top2_match"]
+
+
 # ----------------------------------------------------------------- main
 
 def main():
@@ -393,8 +702,10 @@ def main():
     phase_env()
     timer = Timer()
     kres = phase_kernels(timer)
+    mres = phase_matcher_kernels(timer)
     runs = phase_ba_main()
     phase_bucketed()
+    n_batched, n_pair = phase_frontend()
 
     summary = []
     for (name, layout), replaces in REPLACES.items():
@@ -410,6 +721,17 @@ def main():
             shape="notre_dame bf16", trafalgar_ms=tra["ms"],
             trafalgar_plain_ms=tra["plain_ms"],
             trafalgar_bound_ms=tra["bound_ms"]))
+    for name, shape, line, launches in (
+            ("top2_match", "frontend", 120, n_batched),
+            ("top2_match[B=1]", "unbatched_8192", 30, n_pair)):
+        rec = mres[shape]
+        summary.append(dict(
+            name=name, route="cuda", source=MATCH_SOURCE,
+            replaces=f"{MATCHER}:{line}", launches=launches,
+            max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+            plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+            bound_by=rec["bound_by"], library_ms=rec["library_ms"],
+            shape=f"{shape}: B={rec['B']} M=N={rec['N']} D={rec['D']}"))
     emit("done", seconds=time.perf_counter() - timer_start)
     print(json.dumps({"kernels": summary}))
     print(nvidia_smi())

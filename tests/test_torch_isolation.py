@@ -88,3 +88,66 @@ def test_make_problem_without_device_raises_without_card():
         make_problem(4, 16, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         from_jax_arrays({})
+
+
+def test_frontend_entry_points_raise_without_card():
+    """SIFT and the feature matcher default to the card and refuse to
+    fall back to the CPU; top2 refuses a device that is neither."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+    from theiasfm_tpu_torch.convert import features_db_from_arrays
+    from theiasfm_tpu_torch.image import extract_sift, extract_sift_batch
+    from theiasfm_tpu_torch.matching import (FeatureMatcher,
+                                             FeatureMatcherOptions)
+    from theiasfm_tpu_torch.matching.fused_matcher import top2
+    img = np.zeros((32, 32), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_sift(img)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        extract_sift_batch([img, img])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        FeatureMatcher(FeatureMatcherOptions(
+            perform_geometric_verification=False),
+            features_db_from_arrays({}))
+    d = torch.zeros((1, 4, 8), device="meta")
+    with pytest.raises(RuntimeError, match="got meta"):
+        top2(d, d, torch.zeros((1, 4), device="meta"))
+
+
+def test_frontend_runs_without_jax():
+    """With jax and theiasfm_tpu unimportable: SIFT on two small views
+    and the feature matcher on the CPU; nothing is built or loaded."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "theiasfm_tpu"):
+            sys.modules[name] = None
+        import numpy as np
+        from theiasfm_tpu_torch import _kernels
+        from theiasfm_tpu_torch.convert import features_db_from_arrays
+        from theiasfm_tpu_torch.image import (SiftOptions,
+                                              extract_sift_batch,
+                                              render_synthetic_views)
+        from theiasfm_tpu_torch.matching import (FeatureMatcher,
+                                                 FeatureMatcherOptions)
+        rng = np.random.default_rng(0)
+        views, _ = render_synthetic_views(rng.random((64, 64)), 2,
+                                          (96, 80), focal=90.0)
+        res = extract_sift_batch(views, SiftOptions(
+            num_octaves=2, max_features_per_octave=128), device="cpu")
+        db = features_db_from_arrays({f"v{i}": (k[v], d[v]) for
+                                      i, (k, d, v) in enumerate(res)})
+        fm = FeatureMatcher(FeatureMatcherOptions(
+            perform_geometric_verification=False,
+            min_num_feature_matches=1), db, device="cpu")
+        fm.add_images(["v0", "v1"])
+        assert fm.match_images() == 1
+        assert _kernels.build.cache_info().currsize == 0
+        assert not any(m == "jax" or m.startswith(("jax.", "theiasfm_tpu."))
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

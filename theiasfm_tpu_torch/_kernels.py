@@ -44,6 +44,9 @@ _SIGNATURES = {"schur_matvec": {
     "schur_pass2_bf16": [_P, _P, _P] + _STRIDES + [_P] * 6 +
     [_LL, _I, _I, _P],
     "schur_pass2_shared_cams": [_I, _I],
+}, "top2_match": {
+    # d1, d2, n2, best, second, idx, B, M, N, D, stream
+    "top2_match_f32": [_P] * 6 + [_I] * 4 + [_P],
 }}
 
 

@@ -17,17 +17,7 @@ import torch
 from .camera import models as cm
 from .math import rotation as rot
 from .sfm.ba.bundle_adjustment import BAProblem
-
-
-def resolve_device(device) -> torch.device:
-    """The device to build tensors on; a CUDA device without a card
-    raises (there is no silent CPU fallback)."""
-    device = torch.device(device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device={device} requested but no CUDA device is available; "
-            "pass device='cpu' to run on the CPU")
-    return device
+from .utils.device import resolve_device
 
 
 def make_problem(n_cams=32, n_pts=1024, obs_per_pt=4,

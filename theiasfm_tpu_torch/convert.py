@@ -1,18 +1,29 @@
-"""Hand the state of a JAX-package bundle-adjustment problem to the port.
+"""Hand state of the JAX package over to the port.
 
-The caller converts the JAX BAProblem's fields to numpy arrays (a dict
-of field name -> np.ndarray or None, e.g.
+Bundle adjustment: the caller converts the JAX BAProblem's fields to
+numpy arrays (a dict of field name -> np.ndarray or None, e.g.
 `{k: None if v is None else np.asarray(v) for k, v in p._asdict().items()}`)
 and its BAOptions to a dict (`dataclasses.asdict`); this module turns
-them into the port's BAProblem and BAOptions. Nothing here imports JAX.
+them into the port's BAProblem and BAOptions.
+
+Features: `features_db_from_arrays` takes the keypoints and descriptors
+as the JAX package's database holds them (numpy arrays per image name)
+and the intrinsics priors as plain field dicts, and builds the port's
+in-memory features-and-matches database.
+
+Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from .bench_problem import resolve_device
+from .camera.models import CameraModelType
+from .matching.database import (InMemoryFeaturesAndMatchesDatabase,
+                                KeypointsAndDescriptors)
 from .sfm.ba.bundle_adjustment import BAOptions, BAProblem
+from .sfm.reconstruction import CameraIntrinsicsPrior
+from .utils.device import resolve_device
 
 
 def from_jax_arrays(fields: dict, device="cuda") -> BAProblem:
@@ -40,3 +51,22 @@ def options_from_dict(d: dict) -> BAOptions:
         d["optimize_intrinsics"] = tuple(bool(b) for b in
                                          d["optimize_intrinsics"])
     return BAOptions(**d)
+
+
+def features_db_from_arrays(features: dict, priors: dict = None
+                            ) -> InMemoryFeaturesAndMatchesDatabase:
+    """{name: (keypoints (K, 4), descriptors (K, D))} numpy arrays, and
+    optionally {name: {CameraIntrinsicsPrior field: value}}, -> the
+    port's in-memory database holding them (arrays copied)."""
+    db = InMemoryFeaturesAndMatchesDatabase()
+    for name, (kps, desc) in features.items():
+        db.put_features(name, KeypointsAndDescriptors(
+            image_name=name, keypoints=np.array(kps, copy=True),
+            descriptors=np.array(desc, copy=True)))
+    for name, fields in (priors or {}).items():
+        fields = dict(fields)
+        if "camera_intrinsics_model_type" in fields:
+            fields["camera_intrinsics_model_type"] = CameraModelType(
+                int(fields["camera_intrinsics_model_type"]))
+        db.put_intrinsics_prior(name, CameraIntrinsicsPrior(**fields))
+    return db
