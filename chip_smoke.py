@@ -4,12 +4,17 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from csrc/ (nvcc, at first use), holds each kernel
-against its plain PyTorch version on the card, and drives the port's two
+against its plain PyTorch version on the card, and drives the port's
 main paths:
 
 * the bundle adjuster (the Schur-PCG LM solve at the 1DSfM Notre-Dame
   scale: 550 cameras, 140k points, 560k observations, the `pcg_fast_pt`
   options of scripts/bench_probe.py) and its bucketed entry point;
+* the rest of the bundle adjuster at the same scale: `pcg_fast_pblocks`
+  (make_blocks through the ba_blocks kernel), the reconstruction-level
+  entry points on a Reconstruction built view by view, the dense-Schur
+  solver (`dense_schur_fast`) and the float64 polish
+  (`bundle_adjust_host_f64`);
 * the feature front end: 8 synthetic 640x480 views -> SIFT (default
   options) -> the batched top-2 matcher on all 28 pairs -> putative
   matches in the features-and-matches database (no geometric
@@ -40,15 +45,21 @@ import torch
 
 from theiasfm_tpu_torch import _kernels
 from theiasfm_tpu_torch.bench_problem import make_problem
+from theiasfm_tpu_torch.camera import models as cm
 from theiasfm_tpu_torch.convert import features_db_from_arrays
 from theiasfm_tpu_torch.image import (SiftOptions, extract_sift,
                                       extract_sift_batch,
                                       render_synthetic_views)
 from theiasfm_tpu_torch.matching import FeatureMatcher, FeatureMatcherOptions
 from theiasfm_tpu_torch.matching import fused_matcher as tfm
-from theiasfm_tpu_torch.sfm.ba import BAOptions, bundle_adjust
+from theiasfm_tpu_torch.math import rotation as rot
+from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
+                                       bundle_adjust_reconstruction,
+                                       bundle_adjust_track,
+                                       bundle_adjust_view)
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
+from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
 from theiasfm_tpu_torch.utils import (dispatch_counts, next_bucket,
                                       reset_dispatch_counts)
 
@@ -78,6 +89,10 @@ FAST_PT = BAOptions(max_iterations=10, loss="huber", loss_scale=2.0,
                     function_tolerance=0.0, point_indices_sorted=True,
                     matvec_bf16=True, cg_eta=0.1, pallas_matvec=True,
                     pallas_transposed=True)
+# pcg_fast_pblocks (scripts/bench_probe.py:86-88): make_blocks through
+# the ba_blocks kernel as well
+FAST_PBLOCKS = dataclasses.replace(FAST_PT, pallas_blocks=True)
+BLOCKS_SOURCE = "theiasfm_tpu_torch/csrc/ba_blocks.cu"
 
 
 def emit(phase, **fields):
@@ -262,6 +277,76 @@ def phase_kernels(timer):
     return results
 
 
+# --------------------------------------------------------- blocks_kernel
+
+def _bench_jacobians(n_cams, n_pts, opp):
+    """The weighted f32 jacobians and residuals of the bench problem at
+    this shape (perturbed start, padded to a multiple of 1024 with masked
+    observations, focal length only: P = 1), as bundle_adjust's
+    build_system hands them to make_blocks."""
+    prob = make_problem(n_cams, n_pts, opp, torch.float32, "cuda",
+                        perturb_seed=7)
+    prob = ba.pad_obs_to_multiple(prob, 1024)
+    with torch.no_grad():
+        r, Jc, Ji, Jp = ba._all_jacobians(
+            int(cm.CameraModelType.PINHOLE), prob,
+            prob.obs_mask.to(torch.float32))
+    M = r.shape[0]
+    return ((Jc.reshape(M, 12), Ji[:, :, :1].reshape(M, 2),
+             Jp.reshape(M, 6), r.contiguous()),
+            (prob.obs_cam, prob.obs_pt))
+
+
+def phase_blocks_kernel(timer):
+    """ba_blocks against blocks_plain on the bench problem's jacobians at
+    every shape: max |kernel - plain| <= 1e-4 max |plain| per output
+    (atomics reorder the f32 sums); median ms of the kernel (L2 flushed
+    before each call, and back to back) and of the plain version."""
+    results = {}
+    P = 1
+    for shape, Nc, Np, opp in SHAPES:
+        t0 = time.perf_counter()
+        js, ids = _bench_jacobians(Nc, Np, opp)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        M = js[0].shape[0]
+        ref = fm.blocks_plain(*js, *ids, Nc, Np)
+        got = fm.blocks(*js, *ids, Nc, Np)
+        torch.cuda.synchronize()
+        errs = []
+        for key, g, f in zip(("pt", "cam", "X", "Y"), got, ref):
+            check(bool(torch.isfinite(g).all()), f"{shape}: {key} not finite")
+            err, scale = (g - f).abs().max().item(), f.abs().max().item()
+            check(err <= 1e-4 * scale, f"{shape}: ba_blocks {key} max abs "
+                  f"err {err} > 1e-4 * {scale}")
+            errs.append((err, scale))
+        # each input read once (jc, ji, jp, r, two int32 ids), each output
+        # written once; per observation 9+3 point and 36+6 camera values
+        # (2 products and a sum each, then an add), X and Y
+        nbytes = (sum(j.numel() * 4 for j in js) + 8 * M +
+                  48 * Np + 168 * Nc + 4 * (4 * P * P + 4 * P))
+        ops = M * (12 * 4 + 42 * 4 + 8 * P * P + 8 * P)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        rec = dict(
+            kernel="ba_blocks", shape=shape, M=M, Nc=Nc, Np=Np, P=P,
+            setup_s=setup_s, camera_path=fm.blocks_camera_path(Nc, P),
+            max_abs_err=max(e for e, _ in errs),
+            rel_err=max(e / max(sc, 1e-30) for e, sc in errs),
+            tol_rel=1e-4,
+            ms=timer.ms(lambda: fm.blocks(*js, *ids, Nc, Np)),
+            ms_back_to_back=timer.ms(lambda: fm.blocks(*js, *ids, Nc, Np),
+                                     cold=False),
+            plain_ms=timer.ms(lambda: fm.blocks_plain(*js, *ids, Nc, Np)),
+            bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
+        emit("blocks_kernel", **rec)
+        results[shape] = rec
+        del js, ids, ref, got
+        torch.cuda.empty_cache()
+    return results
+
+
 # ------------------------------------------------------------- ba_main
 
 def _counts_check(counts, what):
@@ -398,6 +483,268 @@ def phase_bucketed():
     emit("bucketed", n_cams=64, n_pts=2000, initial_cost=c0, final_cost=c1,
          iterations=s.num_iterations, wall_s=sec,
          launches={k: counts[k] for k in ("schur_pass1", "schur_pass2")})
+
+
+# ------------------------------------------------------------ ba_blocks
+
+def phase_ba_blocks():
+    """pcg_fast_pblocks beside pcg_fast_pt on the Notre-Dame problem (the
+    plan at block 512, as scripts/bench_probe.py attaches it for
+    pblocks), in turns pt, pblocks, pblocks, pt; the f32 cg_eta=0 solve
+    with the blocks kernel against the one with plain blocks; a profile
+    of 3 LM iterations. Returns (ba_blocks launches of the first
+    pcg_fast_pblocks run, the plain-blocks f32 cg_eta=0 final cost)."""
+    prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
+                        perturb_seed=7)
+    prob = ba.add_pallas_matvec_plan(ba.pad_obs_to_multiple(prob, 512),
+                                     block=512)
+    check(ba.blocks_kernel_eligible(prob, FAST_PBLOCKS),
+          "pcg_fast_pblocks not eligible for the blocks kernel")
+    _solve(prob, dataclasses.replace(FAST_PBLOCKS, max_iterations=2))
+    runs = {"pcg_fast_pt": [], "pcg_fast_pblocks": []}
+    launches = None
+    for name in ("pcg_fast_pt", "pcg_fast_pblocks", "pcg_fast_pblocks",
+                 "pcg_fast_pt"):
+        opts = FAST_PBLOCKS if name == "pcg_fast_pblocks" else FAST_PT
+        torch.cuda.reset_peak_memory_stats()
+        _, s, sec, counts = _solve(prob, opts)
+        n_sv = _counts_check(counts, name)
+        n_blocks = counts.get("ba_blocks", 0)
+        if name == "pcg_fast_pblocks":
+            # one make_blocks per LM iteration (no jacobian reuse)
+            check(n_blocks == s.num_iterations,
+                  f"{name}: ba_blocks launched {n_blocks} times in "
+                  f"{s.num_iterations} LM iterations")
+            launches = n_blocks if launches is None else launches
+        else:
+            check(n_blocks == 0, f"{name}: launched ba_blocks")
+        c0, c1 = float(s.initial_cost), float(s.final_cost)
+        check(np.isfinite(c1) and c1 < 0.5 * c0,
+              f"{name}: cost {c0} -> {c1} did not halve")
+        runs[name].append(s.num_iterations / sec)
+        emit("ba_blocks", config=name, n_obs=prob.obs_cam.shape[0],
+             initial_cost=c0, final_cost=c1, iterations=s.num_iterations,
+             wall_s=sec, lm_iters_per_s=s.num_iterations / sec,
+             schur_products=n_sv,
+             peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+             launches={k: counts.get(k, 0) for k in
+                       ("schur_pass1", "schur_pass2", "ba_blocks")})
+
+    exact = dataclasses.replace(FAST_PBLOCKS, matvec_bf16=False,
+                                cg_eta=0.0)
+    _, s_k, sec_k, counts_k = _solve(prob, exact)
+    check(counts_k.get("ba_blocks", 0) == s_k.num_iterations,
+          f"blocks pair: ba_blocks launches {counts_k}")
+    _, s_p, sec_p, counts_p = _solve(
+        prob, dataclasses.replace(exact, pallas_blocks=False))
+    check("ba_blocks" not in counts_p, "plain-blocks solve launched it")
+    ck, cp = float(s_k.final_cost), float(s_p.final_cost)
+    rel = abs(ck - cp) / abs(cp)
+    emit("ba_blocks_pair", config="f32 matvec, cg_eta=0",
+         blocks_kernel_final_cost=ck, plain_blocks_final_cost=cp,
+         rel_diff=rel, tol_rel=1e-3, kernel_wall_s=sec_k,
+         plain_wall_s=sec_p, kernel_iterations=s_k.num_iterations,
+         plain_iterations=s_p.num_iterations)
+    check(rel <= 1e-3, f"blocks kernel and plain blocks disagree: {ck} "
+          f"vs {cp}")
+
+    s, prof = _profile(lambda: bundle_adjust(
+        prob, dataclasses.replace(FAST_PBLOCKS, max_iterations=3))[1], "ba.")
+    emit("ba_blocks_profile", config="pcg_fast_pblocks",
+         iterations=s.num_iterations, **prof)
+    emit("ba_blocks_summary", lm_iters_per_s=runs)
+    return launches, cp
+
+
+# ------------------------------------------------------------- ba_entry
+
+def _recon_from_problem(prob):
+    """A Reconstruction holding the problem's cameras (one shared
+    intrinsics group), points and unmasked observations, built through
+    add_view / add_track / add_observation as a pipeline builds it."""
+    extr = prob.extrinsics.double().cpu().numpy()
+    intr = prob.intrinsics[0].double().cpu().numpy()
+    pts = prob.points.double().cpu().numpy()
+    keep = prob.obs_mask.cpu().numpy()
+    cams = prob.obs_cam.cpu().numpy()[keep]
+    pids = prob.obs_pt.cpu().numpy()[keep]
+    pix = prob.obs_pix.double().cpu().numpy()[keep]
+    rec = Reconstruction()
+    for i in range(extr.shape[0]):
+        v = rec.add_view(f"view{i:05d}", group=0)
+        cam = rec.views[v].camera
+        cam.extrinsics = extr[i].copy()
+        cam.intrinsics = intr.copy()
+        rec.views[v].is_estimated = True
+    for j in range(pts.shape[0]):
+        t = rec.add_track()
+        rec.tracks[t].point = np.append(pts[j], 1.0)
+        rec.tracks[t].is_estimated = True
+    for c, p, x in zip(cams.tolist(), pids.tolist(), pix):
+        rec.add_observation(c, p, x)
+    return rec
+
+
+def _small_scene(V=6, N=80, seed=42):
+    """tests/test_ba_entry_points.py's scene: noiseless projections of N
+    points into V views of one intrinsics group."""
+    g = np.random.default_rng(seed)
+    positions = g.uniform(-1, 1, (V, 3))
+    orient = g.uniform(-0.1, 0.1, (V, 3))
+    pts = g.uniform(-2, 2, (N, 3))
+    pts[:, 2] += 8.0
+    Rs = rot.angle_axis_to_rotation_matrix(torch.from_numpy(orient)).numpy()
+    rec = Reconstruction()
+    for i in range(V):
+        v = rec.add_view(f"v{i}", group=77)
+        cam = rec.views[v].camera
+        cam.intrinsics[0] = 600.0
+        cam.intrinsics[3:5] = [320.0, 240.0]
+        cam.extrinsics = np.concatenate([positions[i], orient[i]])
+        rec.views[v].is_estimated = True
+    for p in pts:
+        t = rec.add_track()
+        rec.tracks[t].point = np.append(p, 1.0)
+        rec.tracks[t].is_estimated = True
+    for i in range(V):
+        Xc = (Rs[i] @ (pts - positions[i]).T).T
+        px = 600.0 * Xc[:, :2] / Xc[:, 2:3] + np.array([320.0, 240.0])
+        for t, x in enumerate(px):
+            rec.add_observation(i, t, x)
+    return rec, g
+
+
+def phase_ba_entry():
+    """bundle_adjust_reconstruction with the pcg_fast_pblocks options on
+    the Notre-Dame problem built as a Reconstruction (host seconds of
+    building and of one snapshot reported apart from the solve); then
+    bundle_adjust_view and bundle_adjust_track on a small scene, both in
+    the default float32 on the card."""
+    prob = make_problem(550, 140_000, 4, torch.float32, "cpu",
+                        perturb_seed=7)
+    t0 = time.perf_counter()
+    rec = _recon_from_problem(prob)
+    build_s = time.perf_counter() - t0
+    (snap, _), snapshot_s = sync_time(lambda: rec.to_ba_problem())
+    n_obs = snap.obs_cam.shape[0]
+    del snap
+    reset_dispatch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    summary, sec = sync_time(lambda: bundle_adjust_reconstruction(
+        rec, FAST_PBLOCKS))
+    counts = dispatch_counts()
+    _counts_check(counts, "ba_entry")
+    check(counts.get("ba_blocks", 0) == summary["num_iterations"],
+          f"ba_entry: ba_blocks launches {counts}")
+    c0, c1 = summary["initial_cost"], summary["final_cost"]
+    check(np.isfinite(c1) and c1 < 0.5 * c0,
+          f"ba_entry: cost {c0} -> {c1} did not halve")
+    pts = np.stack([rec.tracks[t].xyz() for t in range(20)])
+    check(bool(np.isfinite(pts).all()), "ba_entry: points not finite")
+
+    # one view's pose and one track's point, recovered
+    small, g = _small_scene()
+    true_extr = small.views[2].camera.extrinsics.copy()
+    small.views[2].camera.extrinsics = true_extr + g.normal(0, 0.02, 6)
+    others = [small.views[u].camera.extrinsics.copy() for u in (0, 1, 3)]
+    (s_view, view_s) = sync_time(lambda: bundle_adjust_view(small, 2))
+    view_err = float(np.abs(small.views[2].camera.extrinsics -
+                            true_extr).max())
+    check(view_err <= 1e-4, f"bundle_adjust_view: pose off by {view_err}")
+    for u, e in zip((0, 1, 3), others):
+        # a held view comes back as the float32 snapshot held it
+        check(np.array_equal(small.views[u].camera.extrinsics,
+                             e.astype(np.float32).astype(np.float64)),
+              "bundle_adjust_view moved a held view")
+    true_pt = small.tracks[5].point.copy()
+    small.tracks[5].point = true_pt + np.array([0.05, -0.03, 0.08, 0.0])
+    s_track, track_s = sync_time(lambda: bundle_adjust_track(small, 5))
+    track_err = float(np.abs(small.tracks[5].xyz() - true_pt[:3]).max())
+    check(track_err <= 1e-4, f"bundle_adjust_track: point off by "
+          f"{track_err}")
+    emit("ba_entry", config="pcg_fast_pblocks",
+         views=len(rec.views), tracks=len(rec.tracks), n_obs=n_obs,
+         build_s=build_s, snapshot_s=snapshot_s, entry_wall_s=sec,
+         initial_cost=c0, final_cost=c1,
+         iterations=summary["num_iterations"],
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+         launches={k: counts.get(k, 0) for k in
+                   ("schur_pass1", "schur_pass2", "ba_blocks")},
+         view_pose_err=view_err, view_final_cost=s_view["final_cost"],
+         view_wall_s=view_s, track_point_err=track_err,
+         track_final_cost=s_track["final_cost"], track_wall_s=track_s)
+
+
+# ------------------------------------------------------ ba_dense, ba_f64
+
+def phase_ba_dense(c_pcg):
+    """dense_schur_fast (dense Schur with the correction blocks kept
+    across rejected steps) on the Notre-Dame problem, with the point and
+    camera-pair tables attached as scripts/bench_probe.py does: final
+    cost within rtol 1e-3 of the f32 PCG solve with cg_eta=0."""
+    prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
+                        perturb_seed=7)
+    t0 = time.perf_counter()
+    prob = ba.add_cam_pair_tables(ba.add_point_obs_map(prob))
+    torch.cuda.synchronize()
+    tables_s = time.perf_counter() - t0
+    opts = BAOptions(max_iterations=10, loss="huber", loss_scale=2.0,
+                     function_tolerance=0.0, point_indices_sorted=True,
+                     linear_solver="dense_schur", precond_reuse=True,
+                     trace_costs=True)
+    _solve(prob, dataclasses.replace(opts, max_iterations=1))
+    torch.cuda.reset_peak_memory_stats()
+    _, s, sec, counts = _solve(prob, opts)
+    check(not counts, f"ba_dense launched {counts}")
+    c1 = float(s.final_cost)
+    rel = abs(c1 - c_pcg) / abs(c_pcg)
+    emit("ba_dense", config="dense_schur_fast", tables_s=tables_s,
+         initial_cost=float(s.initial_cost), final_cost=c1,
+         pcg_f32_eta0_final_cost=c_pcg, rel_diff=rel, tol_rel=1e-3,
+         iterations=s.num_iterations, wall_s=sec,
+         lm_iters_per_s=s.num_iterations / sec,
+         rejected=int((s.cost_trace < 0).sum()),
+         peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
+    check(rel <= 1e-3, f"dense Schur and PCG disagree: {c1} vs {c_pcg}")
+
+
+def phase_ba_f64():
+    """The float64 polish on the card from a converged float32 state: an
+    f32 solve (kernels, cg_eta=0) to function tolerance 1e-9, then
+    bundle_adjust_host_f64 with the exact options of
+    scripts/bench_probe.py's matched mode, 12 iterations. Its final cost
+    may exceed the float64 cost of the state it started from by at most a
+    factor 1 + 1e-6, and lies within 1e-4 of the f32 final cost: the f32
+    cost itself is off by some 2e-5 (its projections round in f32), so
+    the two precisions' costs are compared only to that."""
+    prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
+                        perturb_seed=7)
+    prob = ba.add_pallas_matvec_plan(ba.pad_obs_to_multiple(prob, 1024),
+                                     block=1024)
+    warm = dataclasses.replace(FAST_PT, matvec_bf16=False, cg_eta=0.0,
+                               max_iterations=30, function_tolerance=1e-9)
+    out32, s32, sec32, _ = _solve(prob, warm)
+    c32 = float(s32.final_cost)
+    polish = BAOptions(max_iterations=12, cg_iterations=100, cg_tol=1e-6,
+                       loss="huber", loss_scale=2.0,
+                       function_tolerance=1e-12, point_indices_sorted=True)
+    reset_dispatch_counts()
+    (out64, s64), sec = sync_time(
+        lambda: ba.bundle_adjust_host_f64(out32, polish))
+    counts = dispatch_counts()
+    check(out64.points.dtype == torch.float64 and
+          out64.points.device.type == "cuda", "ba_f64: not f64 on the card")
+    for x in (out64.extrinsics, out64.intrinsics, out64.points):
+        check(bool(torch.isfinite(x).all()), "ba_f64: non-finite")
+    c64, c64_0 = float(s64.final_cost), float(s64.initial_cost)
+    emit("ba_f64", f32_final_cost=c32, f32_iterations=s32.num_iterations,
+         f32_wall_s=sec32, f64_initial_cost=c64_0, f64_final_cost=c64,
+         f64_iterations=s64.num_iterations, f64_wall_s=sec,
+         rel_gain=(c64_0 - c64) / c64_0, rel_diff_f32=(c64 - c32) / c32,
+         schur_products=counts.get("schur_matvec", 0))
+    check(c64 <= c64_0 * (1 + 1e-6),
+          f"ba_f64: {c64} > {c64_0} * (1 + 1e-6)")
+    check(abs(c64 - c32) <= 1e-4 * c32, f"ba_f64: {c64} vs f32 {c32}")
 
 
 # ------------------------------------------------------ matcher_kernels
@@ -702,9 +1049,14 @@ def main():
     phase_env()
     timer = Timer()
     kres = phase_kernels(timer)
+    bres = phase_blocks_kernel(timer)
     mres = phase_matcher_kernels(timer)
     runs = phase_ba_main()
     phase_bucketed()
+    n_blocks, c_pcg = phase_ba_blocks()
+    phase_ba_entry()
+    phase_ba_dense(c_pcg)
+    phase_ba_f64()
     n_batched, n_pair = phase_frontend()
 
     summary = []
@@ -721,6 +1073,16 @@ def main():
             shape="notre_dame bf16", trafalgar_ms=tra["ms"],
             trafalgar_plain_ms=tra["plain_ms"],
             trafalgar_bound_ms=tra["bound_ms"]))
+    rec, tra = bres["notre_dame"], bres["trafalgar"]
+    summary.append(dict(
+        name="ba_blocks", route="cuda", source=BLOCKS_SOURCE,
+        replaces=f"{PALLAS}:644", launches=n_blocks,
+        max_abs_err=rec["max_abs_err"], ms=rec["ms"],
+        plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+        bound_by=rec["bound_by"], library_ms=None,
+        shape="notre_dame f32", trafalgar_ms=tra["ms"],
+        trafalgar_plain_ms=tra["plain_ms"],
+        trafalgar_bound_ms=tra["bound_ms"]))
     for name, shape, line, launches in (
             ("top2_match", "frontend", 120, n_batched),
             ("top2_match[B=1]", "unbatched_8192", 30, n_pair)):

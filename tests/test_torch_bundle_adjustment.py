@@ -29,9 +29,16 @@ from theiasfm_tpu_torch.utils import (  # noqa: E402
     dispatch_counts, reset_dispatch_counts)
 
 
+def _np(v):
+    if v is None:
+        return None
+    if isinstance(v, tuple):
+        return tuple(_np(e) for e in v)
+    return np.asarray(v)
+
+
 def _fields(p):
-    return {k: None if v is None else np.asarray(v)
-            for k, v in p._asdict().items()}
+    return {k: _np(v) for k, v in p._asdict().items()}
 
 
 def _to_port(p):
@@ -157,6 +164,49 @@ def test_f32_pcg_fast_matches_jax(f32_problem):
                                rtol=1e-3)
 
 
+def test_f32_pallas_blocks_matches_jax(f32_problem):
+    """pallas_blocks with the matvec kernels: the final cost within rtol
+    1e-3 of JAX's (FusedBlocks in interpret mode) and of JAX's XLA
+    solve; on the CPU the wrapper runs blocks_plain, so the solve equals
+    the port's plain-blocks solve exactly."""
+    jp, c_xla = f32_problem
+    opts = dataclasses.replace(F32_BASE, pallas_matvec=True,
+                               pallas_blocks=True)
+    _, s_j = j_bundle_adjust(jp, opts)
+    tp = _to_port(jp)
+    assert tba.blocks_kernel_eligible(tp, _opts(opts))
+    reset_dispatch_counts()
+    out_t, s_t = bundle_adjust(tp, _opts(opts))
+    assert set(dispatch_counts()) == {"schur_matvec"}
+    c_t = float(s_t.final_cost)
+    np.testing.assert_allclose(c_t, float(s_j.final_cost), rtol=1e-3)
+    np.testing.assert_allclose(c_t, c_xla, rtol=1e-3)
+    out_p, s_p = bundle_adjust(
+        tp, _opts(dataclasses.replace(opts, pallas_blocks=False)))
+    assert float(s_p.final_cost) == c_t
+    for a, b in zip(_params(out_t), _params(out_p)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bucketed_pallas_blocks_matches_jax():
+    """The reconstruction-level path: bundle_adjust_bucketed pads every
+    axis (masked padding observations), attaches the plan at block 1024
+    and, with pallas_blocks, runs make_blocks through the blocks
+    wrapper."""
+    jp = _make_problem(n_cams=12, n_pts=300, obs_per_pt=4,
+                       dtype=jnp.float32)
+    base = JOptions(max_iterations=5, cg_iterations=20, loss="huber",
+                    loss_scale=2.0, function_tolerance=0.0,
+                    pallas_matvec=True, pallas_blocks=True)
+    out_j, s_j = jba.bundle_adjust_bucketed(jp, base)
+    out_t, s_t = tba.bundle_adjust_bucketed(_to_port(jp), _opts(base))
+    np.testing.assert_allclose(float(s_t.final_cost), float(s_j.final_cost),
+                               rtol=1e-3)
+    assert float(s_t.final_cost) < 0.5 * float(s_t.initial_cost)
+    for a, b in zip(_params(out_t), _params(out_j)):
+        assert a.shape == b.shape
+
+
 def test_bucketed_matches_jax():
     jp = _make_problem(n_cams=12, n_pts=300, obs_per_pt=4,
                        dtype=jnp.float32)
@@ -173,15 +223,78 @@ def test_bucketed_matches_jax():
         assert a.shape == b.shape
 
 
+# -------------------------------------------- dense Schur, f64 polish
+
+@pytest.mark.parametrize("reuse,tables", [(False, False), (True, True)],
+                         ids=["dense_schur", "dense_schur_fast"])
+def test_f64_dense_schur_matches_jax(reuse, tables):
+    """The dense-Schur solve in f64 against JAX's; with the camera-pair
+    tables attached JAX takes its scatter-free path, which the port's
+    index_add_ assembly must equal; precond_reuse keeps the correction
+    blocks across rejected steps (Cauchy from lambda 1e-3 makes some)."""
+    jp = _make_problem(n_cams=12, n_pts=256, obs_per_pt=4,
+                       dtype=jnp.float64)
+    jp = jba.add_point_obs_map(jp)
+    if tables:
+        jp = jba.add_cam_pair_tables(jp)
+    opts = dataclasses.replace(F64_BASE, linear_solver="dense_schur",
+                               precond_reuse=reuse, trace_costs=True)
+    if reuse:
+        opts = dataclasses.replace(opts, loss="cauchy", initial_lambda=1e-3)
+    out_j, s_j = j_bundle_adjust(jp, opts)
+    out_t, s_t = bundle_adjust(_to_port(jp), _opts(opts))
+    np.testing.assert_allclose(float(s_t.final_cost), float(s_j.final_cost),
+                               rtol=1e-6)
+    for a, b in zip(_params(out_t), _params(out_j)):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+    assert s_t.num_iterations == int(s_j.num_iterations)
+    assert float(s_t.final_cost) < 0.5 * float(s_t.initial_cost)
+    if reuse:
+        assert (s_t.cost_trace < 0).any()
+
+
+def test_dense_schur_requires_point_obs_map():
+    tp = make_problem(4, 16, 2, dtype=torch.float64, device="cpu")
+    with pytest.raises(ValueError, match="pt_idx_map"):
+        bundle_adjust(tp, tba.BAOptions(linear_solver="dense_schur"))
+
+
+def test_host_f64_matches_jax(f32_problem):
+    """bundle_adjust_host_f64 from an f32 problem: both packages solve in
+    float64 (the port on the problem's own device, here the CPU) with the
+    plain matvec, whatever the options ask."""
+    jp, _ = f32_problem
+    opts = dataclasses.replace(F64_BASE, pallas_matvec=True,
+                               pallas_blocks=True, max_iterations=6)
+    out_j, s_j = jba.bundle_adjust_host_f64(jp, opts)
+    tp = _to_port(jp)
+    reset_dispatch_counts()
+    out_t, s_t = tba.bundle_adjust_host_f64(tp, _opts(opts))
+    assert out_t.points.dtype == torch.float64
+    assert out_t.obs_cam.dtype == torch.int32
+    assert tp.points.dtype == torch.float32
+    np.testing.assert_allclose(float(s_t.final_cost), float(s_j.final_cost),
+                               rtol=1e-6)
+    for a, b in zip(_params(out_t), _params(out_j)):
+        np.testing.assert_allclose(a, b, atol=1e-6)
+
+
 # --------------------------------------------------- problem preparation
+
+def _assert_equal(a, b, name):
+    assert (a is None) == (b is None), name
+    if isinstance(a, tuple):
+        assert isinstance(b, tuple) and len(a) == len(b), name
+        for x, y in zip(a, b):
+            _assert_equal(x, y, name)
+    elif a is not None:
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                      err_msg=name)
+
 
 def _assert_problems_equal(pt, pj):
     for name, a in pt._asdict().items():
-        b = getattr(pj, name)
-        assert (a is None) == (b is None), name
-        if a is not None:
-            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
-                                          err_msg=name)
+        _assert_equal(a, getattr(pj, name), name)
 
 
 @pytest.mark.parametrize("flags", [
@@ -213,6 +326,28 @@ def test_matvec_plan_fields_match_jax(multiple):
     pj = jba.add_point_obs_map(pj)
     pt = tba.add_point_obs_map(pt)
     _assert_problems_equal(pt, pj)
+
+
+@pytest.mark.parametrize("pad", [False, True])
+def test_cam_pair_tables_match_jax(pad):
+    """add_cam_pair_tables field for field (the tables, both permutation
+    maps and the per-camera observation tables), small classes so that
+    groups spill across rows and max_entries so that classes split into
+    chunks; and the tuple field handed over by from_jax_arrays."""
+    jp = _make_problem(n_cams=12, n_pts=300, obs_per_pt=4,
+                       dtype=jnp.float32)
+    tp = _to_port(jp)
+    if pad:
+        jp = jba.pad_ba_problem(jp, build_point_obs_map=True)
+        tp = tba.pad_ba_problem(tp, build_point_obs_map=True)
+    else:
+        jp, tp = jba.add_point_obs_map(jp), tba.add_point_obs_map(tp)
+    kw = dict(classes=(2, 4, 16), max_entries=64)
+    pj = jba.add_cam_pair_tables(jp, **kw)
+    pt = tba.add_cam_pair_tables(tp, **kw)
+    assert len(pj.cam_pair_tables) > 3
+    _assert_problems_equal(pt, pj)
+    _assert_problems_equal(_to_port(pj), pj)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -250,10 +385,23 @@ def test_make_problem_perturbation_matches_bench_probe():
     np.testing.assert_allclose(tp.points.numpy(), pts, atol=1e-6)
 
 
-@pytest.mark.parametrize("extra", [{"linear_solver": "dense_schur"},
-                                   {"pallas_blocks": True},
-                                   {"axis_name": "obs"}])
+@pytest.mark.parametrize("extra", [{"axis_name": "obs"}])
 def test_unported_options_raise(extra):
     tp = make_problem(4, 16, 2, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError):
         bundle_adjust(tp, tba.BAOptions(**extra))
+
+
+@pytest.mark.parametrize("extra", [{"linear_solver": "dense_schur"},
+                                   {"pallas_matvec": True,
+                                    "pallas_blocks": True}],
+                         ids=["dense_schur", "pallas_blocks"])
+def test_ported_options_run(extra):
+    """The two options this package once refused now solve (on the tiny
+    problem those refusals were tested on)."""
+    tp = make_problem(4, 16, 2, dtype=torch.float32, device="cpu")
+    tp = tba.add_pallas_matvec_plan(tba.add_point_obs_map(
+        tba.pad_obs_to_multiple(tp, 32)), block=32)
+    _, s = bundle_adjust(tp, tba.BAOptions(max_iterations=3, **extra))
+    assert s.num_iterations == 3
+    assert float(s.final_cost) < float(s.initial_cost)

@@ -151,3 +151,82 @@ def test_frontend_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_reconstruction_entry_points_raise_without_card():
+    """The snapshot and the reconstruction-level entry points default to
+    the card and refuse to fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from theiasfm_tpu_torch.sfm.ba import (bundle_adjust_reconstruction,
+                                           bundle_adjust_view)
+    from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
+    rec = Reconstruction()
+    vid = rec.add_view("v0")
+    rec.views[vid].is_estimated = True
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        rec.to_ba_problem()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle_adjust_reconstruction(rec)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bundle_adjust_view(rec, vid)
+
+
+def test_rest_of_ba_runs_without_jax():
+    """With jax and theiasfm_tpu unimportable: a reconstruction built
+    through add_view/add_track/add_observation, bundle_adjust_reconstruction
+    with the blocks kernel options, the dense-Schur solve, the f64 solve
+    and the two-view refinements, all on the CPU; nothing is built or
+    loaded."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "theiasfm_tpu"):
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        from theiasfm_tpu_torch import _kernels
+        from theiasfm_tpu_torch.bench_problem import make_problem
+        from theiasfm_tpu_torch.sfm.ba import (BAOptions,
+                                               bundle_adjust_reconstruction)
+        from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
+        from theiasfm_tpu_torch.sfm.ba import two_view
+        from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
+        p = make_problem(8, 300, 4, dtype=torch.float32, device="cpu")
+        rec = Reconstruction()
+        for i in range(8):
+            v = rec.add_view(f"v{i}", group=0)
+            rec.views[v].camera.extrinsics = p.extrinsics[i].double().numpy()
+            rec.views[v].camera.intrinsics = p.intrinsics[0].double().numpy()
+            rec.views[v].is_estimated = True
+        for j in range(300):
+            t = rec.add_track()
+            rec.tracks[t].point = np.append(p.points[j].double().numpy(), 1)
+            rec.tracks[t].is_estimated = True
+        for m in np.flatnonzero(p.obs_mask.numpy()):
+            rec.add_observation(int(p.obs_cam[m]), int(p.obs_pt[m]),
+                                p.obs_pix[m].double().numpy())
+        s = bundle_adjust_reconstruction(rec, BAOptions(
+            max_iterations=3, loss="huber", loss_scale=2.0,
+            pallas_matvec=True, pallas_blocks=True), device="cpu")
+        assert s["final_cost"] < s["initial_cost"], s
+        q = ba.add_point_obs_map(p)
+        o = BAOptions(max_iterations=2, linear_solver="dense_schur")
+        _, s = ba.bundle_adjust(q, o)
+        assert float(s.final_cost) < float(s.initial_cost)
+        out, s = ba.bundle_adjust_host_f64(p, BAOptions(max_iterations=2))
+        assert out.points.dtype == torch.float64
+        R = torch.eye(3, dtype=torch.float64)[None]
+        x = torch.rand(1, 10, 2, dtype=torch.float64)
+        w = torch.ones(1, 10, dtype=torch.float64)
+        t = two_view.optimize_relative_position_with_known_rotation(
+            torch.tensor([[1.0, 0, 0]], dtype=torch.float64), R, R, x, x, w)
+        assert t.shape == (1, 3)
+        assert _kernels.build.cache_info().currsize == 0
+        assert not any(m == "jax" or m.startswith(("jax.", "theiasfm_tpu."))
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")

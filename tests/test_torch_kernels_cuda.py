@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-the Schur-matvec passes (csrc/schur_matvec.cu, sfm/ba/fused_matvec.py)
+the Schur-matvec passes (csrc/schur_matvec.cu, sfm/ba/fused_matvec.py),
+the normal-equation blocks sweep (csrc/ba_blocks.cu, fused_matvec.blocks)
 and the top-2 matcher (csrc/top2_match.cu, matching/fused_matcher.py).
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
@@ -82,6 +83,57 @@ def test_wrapper_rejects_bad_inputs_on_card():
         fm.pass1(js[0].half(), *js[1:], oc, op, x["vc"], x["vg"], Np)
     with pytest.raises(RuntimeError):
         fm.pass1(*js, oc, op, x["vc"].cpu(), x["vg"], Np)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("sorted_pts", [True, False],
+                         ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("Nc", [40, 1300, 12000],
+                         ids=["shared", "shared_1300", "global"])
+def test_ba_blocks_matches_plain_on_card(P, sorted_pts, Nc):
+    """ba_blocks against blocks_plain: (M, F) tensors and strided .T
+    views of (F, M) ones; unsorted point ids exercise the warp run
+    detection, Nc=12000 the global-atomics camera path. Tolerance 1e-4 of
+    max|ref| per output: atomics reorder the f32 sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    path = fm.blocks_camera_path(Nc, P)
+    assert path == ("global" if Nc == 12000 else "shared")
+    M, Np = 5000, 700
+    rng = np.random.default_rng(3)
+    x = _inputs(rng, M, Nc, Np, P, sorted_pts, torch.float32)
+    r = torch.tensor(rng.normal(size=(M, 2)), dtype=torch.float32,
+                     device="cuda")
+    rows = [j.T.contiguous() for j in x["js_t"]] + [r]
+    views = [j.T for j in x["js_t"]] + [r.T.contiguous().T]
+    for js in (rows, views):
+        reset_dispatch_counts()
+        got = fm.blocks(*js, *x["ids"], Nc, Np)
+        ref = fm.blocks_plain(*js, *x["ids"], Nc, Np)
+        torch.cuda.synchronize()
+        assert dispatch_counts() == {"ba_blocks": 1}
+        for g, f in zip(got, ref):
+            assert g.shape == f.shape
+            err = (g - f).abs().max().item()
+            assert err <= 1e-4 * f.abs().max().item(), err
+
+
+@pytest.mark.cuda
+def test_ba_blocks_rejects_bad_inputs_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M = 64
+    j = [torch.zeros(M, F, device="cuda") for F in (12, 2, 6, 2)]
+    ids = torch.zeros(M, dtype=torch.int32, device="cuda")
+    with pytest.raises(TypeError):
+        fm.blocks(j[0].double(), *j[1:], ids, ids, 3, 4)
+    with pytest.raises(ValueError):
+        fm.blocks(*j, ids.long(), ids, 3, 4)
+    with pytest.raises(ValueError):
+        fm.blocks(j[0][:, :11], *j[1:], ids, ids, 3, 4)
+    with pytest.raises(RuntimeError):
+        fm.blocks(*j[:3], j[3].cpu(), ids, ids, 3, 4)
 
 
 # ----------------------------------------------------------- top2_match

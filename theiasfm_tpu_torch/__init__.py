@@ -16,14 +16,20 @@ Ported so far:
   matchers, the features-and-matches database and the feature matcher
   without geometric verification (`matching/`). The fused matcher's
   running top-2 runs as a hand-written CUDA kernel
-  (`csrc/top2_match.cu`).
+  (`csrc/top2_match.cu`);
+* the rest of the bundle adjuster: the normal-equation blocks sweep as
+  a hand-written CUDA kernel (`csrc/ba_blocks.cu`, `pallas_blocks`), the
+  dense-Schur solver, the float64 polish, the reconstruction data model
+  (`sfm/reconstruction.py`) with the reconstruction-level entry points
+  (`sfm/ba/entry_points.py`), and the two-view refinements.
 
 The kernels are built at first use by `_kernels.py`. Entry points run
 on the device of the tensors they are given; the constructors and entry
 points that build their own tensors (`bench_problem.make_problem`,
 `convert.from_jax_arrays`, `image.extract_sift[_batch]`,
-`matching.FeatureMatcher`) default to `device="cuda"` and raise when no
-card is present.
+`matching.FeatureMatcher`, `Reconstruction.to_ba_problem` and the
+`sfm.ba` entry points) default to `device="cuda"` and raise when no card
+is present.
 """
 
-__version__ = "0.2.0"
+__version__ = "0.3.0"

@@ -33,7 +33,12 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _STRIDES = [_LL] * 6
-_SIGNATURES = {"schur_matvec": {
+_SIGNATURES = {"ba_blocks": {
+    # jc, ji, jp, r, 8 strides, obs_cam, obs_pt, pt, cam, x, y, M, P, Nc,
+    # stream
+    "ba_blocks_f32": [_P] * 4 + [_LL] * 8 + [_P] * 6 + [_LL, _I, _I, _P],
+    "ba_blocks_shared_cams": [_I, _I],
+}, "schur_matvec": {
     # jc, ji, jp, 6 strides, obs_cam, obs_pt, vc, vg, u, wp, M, P, stream
     "schur_pass1_f32": [_P, _P, _P] + _STRIDES + [_P] * 6 + [_LL, _I, _P],
     "schur_pass1_bf16": [_P, _P, _P] + _STRIDES + [_P] * 6 + [_LL, _I, _P],

@@ -6,6 +6,11 @@ numpy arrays (a dict of field name -> np.ndarray or None, e.g.
 and its BAOptions to a dict (`dataclasses.asdict`); this module turns
 them into the port's BAProblem and BAOptions.
 
+Reconstructions: `reconstruction_from_state` takes the JAX
+Reconstruction's views, tracks and intrinsics groups as plain dicts of
+numpy arrays and scalars (`dataclasses.asdict` of each View and Track)
+and builds the port's Reconstruction.
+
 Features: `features_db_from_arrays` takes the keypoints and descriptors
 as the JAX package's database holds them (numpy arrays per image name)
 and the intrinsics priors as plain field dicts, and builds the port's
@@ -22,7 +27,8 @@ from .camera.models import CameraModelType
 from .matching.database import (InMemoryFeaturesAndMatchesDatabase,
                                 KeypointsAndDescriptors)
 from .sfm.ba.bundle_adjustment import BAOptions, BAProblem
-from .sfm.reconstruction import CameraIntrinsicsPrior
+from .sfm.reconstruction import (Camera, CameraIntrinsicsPrior,
+                                 Reconstruction, Track, View)
 from .utils.device import resolve_device
 
 
@@ -70,3 +76,47 @@ def features_db_from_arrays(features: dict, priors: dict = None
                 int(fields["camera_intrinsics_model_type"]))
         db.put_intrinsics_prior(name, CameraIntrinsicsPrior(**fields))
     return db
+
+
+def reconstruction_from_state(state: dict) -> Reconstruction:
+    """A JAX Reconstruction's state -> the port's Reconstruction (arrays
+    copied). `state` holds
+      "views": {view id: dataclasses.asdict(View)},
+      "tracks": {track id: dataclasses.asdict(Track)},
+      "view_groups": {view id: intrinsics group id},
+    and optionally "next_view_id", "next_track_id", "next_group_id" (by
+    default one past the largest id in use)."""
+    rec = Reconstruction()
+
+    def model(x):
+        return CameraModelType(int(x))
+
+    for vid, v in state["views"].items():
+        cam = dict(v["camera"])
+        cam["model_type"] = model(cam["model_type"])
+        for k in ("extrinsics", "intrinsics"):
+            cam[k] = np.array(cam[k], dtype=np.float64, copy=True)
+        prior = dict(v.get("prior") or {})
+        if "camera_intrinsics_model_type" in prior:
+            prior["camera_intrinsics_model_type"] = model(
+                prior["camera_intrinsics_model_type"])
+        rec.views[vid] = View(
+            name=v["name"], camera=Camera(**cam),
+            prior=CameraIntrinsicsPrior(**prior),
+            is_estimated=bool(v["is_estimated"]),
+            features={t: np.array(f, dtype=float, copy=True)
+                      for t, f in v["features"].items()})
+        rec._name_to_id[v["name"]] = vid
+    for tid, t in state["tracks"].items():
+        rec.tracks[tid] = Track(
+            point=np.array(t["point"], dtype=np.float64, copy=True),
+            color=np.array(t["color"], copy=True),
+            is_estimated=bool(t["is_estimated"]), views=set(t["views"]))
+    rec.view_groups = dict(state["view_groups"])
+    rec._next_view_id = state.get("next_view_id",
+                                  max(rec.views, default=-1) + 1)
+    rec._next_track_id = state.get("next_track_id",
+                                   max(rec.tracks, default=-1) + 1)
+    rec._next_group_id = state.get(
+        "next_group_id", max(rec.view_groups.values(), default=-1) + 1)
+    return rec

@@ -1,6 +1,5 @@
 """Sparse Levenberg–Marquardt bundle adjustment with Schur-complement
-reduction and matrix-free PCG, in PyTorch (port of the PCG path of
-theiasfm_tpu/sfm/ba/bundle_adjustment.py).
+reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
 
   * The problem is a struct of tensors: observations in COO form
     (camera, intrinsics group, point, pixel) with a mask. One
@@ -16,22 +15,32 @@ theiasfm_tpu/sfm/ba/bundle_adjustment.py).
     with gathers, einsums and index_add_.
   * Preconditioner: SCHUR_JACOBI (exact 6x6 diagonal blocks of S) or
     block_diag.
+  * The undamped normal-equation blocks (make_blocks) are one sweep
+    over the observations: with `BAOptions.pallas_blocks` (and the
+    matvec kernels eligible) the ba_blocks CUDA kernel, otherwise its
+    plain version fused_matvec.blocks_plain.
+  * `linear_solver="dense_schur"` forms the reduced camera system S
+    densely from per-point observation pairs (pt_idx_map) and solves it
+    with a Cholesky factorization instead of PCG.
   * LM trust region with accept/reject and lambda adaptation, as a
     host loop; the CG loop tests its stopping rule on the host once per
     iteration.
   * Each phase of an LM iteration is a `torch.profiler` range named
-    "ba.<phase>" (linearize, blocks, rhs, precond, cg, backsub, inner,
-    cost), so a profile splits the iteration's device time by phase.
+    "ba.<phase>" (linearize, blocks, rhs, precond, cg, factor, backsub,
+    inner, cost), so a profile splits the iteration's device time by
+    phase.
 
 The solver runs on the device of the problem's tensors. The JAX
 solver's workarounds for the TPU (flat one-hot einsums, gather-table
 reductions, lane-padded buffers) are not ported: the same math is
 written with einsum on (M, 2, k) views and index_add_. So the BAProblem
 fields that only choose a TPU reduction strategy — cam_idx_map/valid,
-grp_idx_map/valid, cam_sort_perm, obs_cam_sorted, pt_idx_map/valid —
-are accepted and not read, as are the dense-Schur tables
-(cam_pair_tables, cam_pair_perm_fwd/rev). `linear_solver="dense_schur"`,
-`pallas_blocks=True` and `axis_name` raise NotImplementedError.
+grp_idx_map/valid, cam_sort_perm, obs_cam_sorted — are accepted and not
+read, as are the dense-Schur gather tables (cam_pair_tables,
+cam_pair_perm_fwd/rev): the dense solver forms its correction blocks
+from pt_idx_map/valid with index_add_ (the PCG solver does not read
+those either). `axis_name` (the sharded solver)
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ import torch
 from torch.profiler import record_function
 
 from ...camera import models as cm
+from ...utils.device import full_f32
 from ...utils.dispatch import count_dispatch
 from ...utils.padding import next_bucket
 from . import fused_matvec as fm
@@ -62,7 +72,8 @@ class BAProblem(NamedTuple):
     obs_mask: torch.Tensor      # (M,) bool (False = padding)
     cam_mask: Optional[torch.Tensor] = None    # (Nc,) False = constant
     point_mask: Optional[torch.Tensor] = None  # (Np,)
-    # accepted, not read (TPU reduction strategies; see module doc)
+    # accepted, not read (TPU reduction strategies; see module doc),
+    # except pt_idx_map/valid, which the dense solver reads
     cam_idx_map: Optional[torch.Tensor] = None
     cam_idx_valid: Optional[torch.Tensor] = None
     pt_idx_map: Optional[torch.Tensor] = None
@@ -78,7 +89,8 @@ class BAProblem(NamedTuple):
     pmv_lpt_tiles: Optional[torch.Tensor] = None   # (G, B) int32
     pmv_p0: Optional[torch.Tensor] = None          # (G,) int32
     pmv_window: Optional[torch.Tensor] = None      # (W,) int8
-    # accepted, not read (dense-Schur tables; dense_schur is not ported)
+    # accepted, not read (the TPU's scatter-free dense-Schur tables; see
+    # add_cam_pair_tables)
     cam_pair_tables: Optional[tuple] = None
     cam_pair_perm_fwd: Optional[torch.Tensor] = None
     cam_pair_perm_rev: Optional[torch.Tensor] = None
@@ -115,7 +127,7 @@ class BAOptions:
     # observations sorted by point (informational here: the kernels and
     # index_add_ are correct in any order)
     point_indices_sorted: bool = False
-    # "pcg" only; "dense_schur" is not ported yet
+    # "pcg" or "dense_schur" (needs pt_idx_map)
     linear_solver: str = "pcg"
     # round the jacobians to bfloat16 inside the CG matvec (f32
     # accumulation; preconditioner, RHS and back-substitution stay in
@@ -132,7 +144,8 @@ class BAOptions:
     # kernel jacobian layout: (F, M) copies made once per damped solve
     # (True) or strided views of the (M, F) arrays (False)
     pallas_transposed: bool = True
-    # fused make_blocks kernel: not ported yet
+    # also run make_blocks' sweep through the ba_blocks kernel when the
+    # matvec kernels are eligible
     pallas_blocks: bool = False
     # keep jacobians and the undamped blocks across rejected steps
     jacobian_reuse: bool = False
@@ -250,17 +263,14 @@ def _diagonal_only(A):
     return A * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
 
 
-def _check_supported(opts: BAOptions):
-    if opts.linear_solver == "dense_schur":
-        raise NotImplementedError(
-            "linear_solver='dense_schur' is not ported to "
-            "theiasfm_tpu_torch yet (see ROADMAP.md); use 'pcg'")
-    if opts.linear_solver != "pcg":
+def _check_supported(prob: BAProblem, opts: BAOptions):
+    if opts.linear_solver not in ("pcg", "dense_schur"):
         raise ValueError(f"unknown linear_solver {opts.linear_solver!r}")
-    if opts.pallas_blocks:
-        raise NotImplementedError(
-            "pallas_blocks=True (the fused make_blocks kernel) is not "
-            "ported to theiasfm_tpu_torch yet (see ROADMAP.md)")
+    if opts.linear_solver == "dense_schur" and prob.pt_idx_map is None:
+        raise ValueError(
+            "linear_solver='dense_schur' requires pt_idx_map — build the "
+            "problem with add_point_obs_map/pad_ba_problem("
+            "build_point_obs_map=True)")
     if opts.axis_name is not None:
         raise NotImplementedError(
             "axis_name (the sharded multi-device solver) is not ported "
@@ -277,9 +287,16 @@ def kernels_eligible(prob: BAProblem, opts: BAOptions) -> bool:
             prob.points.dtype == torch.float32)
 
 
+def blocks_kernel_eligible(prob: BAProblem, opts: BAOptions) -> bool:
+    """Whether make_blocks runs through the ba_blocks kernel: the matvec
+    kernels are eligible and the options ask for it (JAX's rule)."""
+    return (kernels_eligible(prob, opts) and opts.pallas_blocks and
+            opts.axis_name is None)
+
+
 def bundle_adjust(prob: BAProblem, opts: BAOptions):
     """Run LM. Returns (BAProblem with updated params, BASummary)."""
-    _check_supported(opts)
+    _check_supported(prob, opts)
     Nc = prob.extrinsics.shape[0]
     Ng = prob.intrinsics.shape[0]
     Np = prob.points.shape[0]
@@ -338,6 +355,12 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
         return torch.einsum("mkp,mp->mk", Ji3, vg[obs_group])
 
     use_kernels = kernels_eligible(prob, opts)
+    blocks_fn = (fm.blocks if blocks_kernel_eligible(prob, opts)
+                 else fm.blocks_plain)
+    dense = opts.linear_solver == "dense_schur"
+    # the dense solver's observation pairs: fixed by pt_idx_map, so found
+    # once per solve
+    obs_pairs = _point_obs_pairs(prob) if dense else None
     if use_kernels and M:
         # the kernels trust their indices: check them once per solve
         lo = torch.stack([obs_cam.min(), obs_pt.min()])
@@ -369,20 +392,15 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
             return _make_blocks(r, Jc12, JiP, Jp6)
 
     def _make_blocks(r, Jc12, JiP, Jp6):
-        Jc3, Jp3 = Jc12.reshape(M, 2, 6), Jp6.reshape(M, 2, 3)
-        Hpp9_m = torch.einsum("mka,mkb->mab", Jp3, Jp3).reshape(M, 9)
-        gp3_m = torch.einsum("mka,mk->ma", Jp3, r)
-        pt_blk = seg_pt(torch.cat([Hpp9_m, gp3_m], dim=1))
+        pt_blk, cam_blk, X, Y = blocks_fn(Jc12, JiP, Jp6, r, obs_cam,
+                                          obs_pt, Nc, Np)
         Hpp9, gp = pt_blk[:, :9], pt_blk[:, 9:]
-        Hcc36_m = torch.einsum("mka,mkb->mab", Jc3, Jc3).reshape(M, 36)
-        gc6_m = torch.einsum("mka,mk->ma", Jc3, r)
-        cam_blk = seg_cam(torch.cat([Hcc36_m, gc6_m], dim=1))
         Hcc = cam_blk[:, :36].reshape(Nc, 6, 6)
         gc = cam_blk[:, 36:]
         if Ng == 1:
-            X = (JiP.T @ JiP).reshape(2, P, 2, P)
+            X = X.reshape(2, P, 2, P)
             Hgg = (X[0, :, 0, :] + X[1, :, 1, :])[None]
-            Y = (JiP.T @ r).reshape(2, P, 2)
+            Y = Y.reshape(2, P, 2)
             gg = (Y[0, :, 0] + Y[1, :, 1])[None]
         else:
             Ji3 = JiP.reshape(M, 2, P)
@@ -403,7 +421,6 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
         P_state carries (Pc_inv, Pg_inv) across rejected steps when
         precond_reuse is on (rebuild_precond False reuses it)."""
         Hpp9, Hcc, Hgg, gc, gg, gp = blocks
-        mv = torch.bfloat16 if opts.matvec_bf16 else dtype
 
         with record_function("ba.rhs"):
             diag9 = torch.zeros(9, dtype=dtype, device=device)
@@ -419,6 +436,26 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
                                             Jc12.reshape(M, 2, 6), t))
             bg = -gg + grp_reduce(JiP.reshape(M, 2, P), t)
 
+        if dense:
+            if rebuild_precond is False:
+                # stale-on-reject reuse: the correction blocks keep the
+                # previous (smaller) lambda inside Hpp^-1; a system that
+                # is then not positive definite yields a NaN step that LM
+                # rejects, raising lambda (JAX's recovery). Hcg is
+                # lambda-independent, hence exact.
+                corr = P_state
+            else:
+                with record_function("ba.precond"):
+                    corr = _dense_schur_corr(prob, Jc12, JiP, Jp6, Hpp_inv,
+                                             obs_pairs)
+            with record_function("ba.factor"):
+                dc, dg = _dense_schur_factor_solve(Hcc, Hgg, bc, bg, lam,
+                                                   *corr)
+            with record_function("ba.backsub"):
+                dp = backsub_points(Jc12, JiP, Jp6, dc, dg, Hpp_inv, gp)
+            return dc, dg, dp, corr
+
+        mv = torch.bfloat16 if opts.matvec_bf16 else dtype
         diag_c = lam * torch.diagonal(Hcc, dim1=-2, dim2=-1)   # (Nc, 6)
         diag_g = lam * torch.diagonal(Hgg, dim1=-2, dim2=-1)   # (Ng, P)
 
@@ -659,6 +696,227 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
 
 
 # --------------------------------------------------------------------------
+# dense Schur
+
+
+def _point_obs_pairs(prob: BAProblem):
+    """(k, l): every ordered pair of valid observations of one point
+    (k == l included), from the (Np, K) table pt_idx_map."""
+    idx = prob.pt_idx_map.long()
+    valid = prob.pt_idx_valid.bool()
+    n, i, j = torch.nonzero(valid[:, :, None] & valid[:, None, :],
+                            as_tuple=True)
+    return idx[n, i], idx[n, j]
+
+
+def _dense_schur_corr(prob: BAProblem, Jc12, JiP, Jp6, Hpp_inv, obs_pairs):
+    """The correction blocks of the reduced camera system
+
+        S = [Hcc  Hcg] - [Hcp] Hpp^-1 [Hpc Hpg]
+            [Hgc  Hgg]   [Hgp]
+
+    Returns (corr_cc (Nc*Nc, 36), corr_cg (Nc, Ng, 6, P), corr_gg
+    (Ng, Ng, P, P), Hcg (Nc, Ng, 6, P)): everything but the damped
+    diagonal, the RHS and the factorization, and the part that
+    precond_reuse keeps across rejected steps.
+
+    The corrections couple the cameras (and groups) of observations of a
+    common point: for observations k, l of point n the pair block is
+    T_k U_l^T, with U = Jc^T Jp (6x3), T = U Hpp^-1[n]. The blocks are
+    formed for every pair of obs_pairs and reduced with index_add_ keyed
+    on (cam_k, cam_l) — the JAX solver's permutation gathers and
+    zero-scatter tables were a TPU workaround, and its row-chunked
+    un-flattening a guard against the TPU's tile padding."""
+    Nc, Ng = prob.extrinsics.shape[0], prob.intrinsics.shape[0]
+    M, P = Jc12.shape[0], JiP.shape[1] // 2
+    dtype, device = Jc12.dtype, Jc12.device
+    cam = prob.obs_cam.long()
+    grp = prob.obs_group.long()
+    Jc3, Ji3, Jp3 = (Jc12.reshape(M, 2, 6), JiP.reshape(M, 2, P),
+                     Jp6.reshape(M, 2, 3))
+    Hcg = torch.zeros((Nc * Ng, 6 * P), dtype=dtype, device=device)
+    Hcg.index_add_(0, cam * Ng + grp, torch.einsum(
+        "mka,mkb->mab", Jc3, Ji3).reshape(M, 6 * P))
+    H = Hpp_inv[prob.obs_pt.long()].reshape(M, 3, 3)
+    U = torch.einsum("mka,mkc->mac", Jc3, Jp3)          # (M, 6, 3)
+    Ug = torch.einsum("mkp,mkc->mpc", Ji3, Jp3)         # (M, P, 3)
+    T, Tg = U @ H, Ug @ H
+    corr_cc = torch.zeros((Nc * Nc, 36), dtype=dtype, device=device)
+    corr_cg = torch.zeros((Nc * Ng, 6 * P), dtype=dtype, device=device)
+    corr_gg = torch.zeros((Ng * Ng, P * P), dtype=dtype, device=device)
+    k_all, l_all = obs_pairs
+    # chunks of pairs bound the (pairs, 36) temporaries
+    step = 1 << 22
+    for s in range(0, k_all.shape[0], step):
+        k, l = k_all[s:s + step], l_all[s:s + step]
+        Tk, Ul, Ugl = T[k], U[l], Ug[l]
+        corr_cc.index_add_(0, cam[k] * Nc + cam[l],
+                           (Tk @ Ul.transpose(1, 2)).reshape(-1, 36))
+        corr_cg.index_add_(0, cam[k] * Ng + grp[l],
+                           (Tk @ Ugl.transpose(1, 2)).reshape(-1, 6 * P))
+        corr_gg.index_add_(0, grp[k] * Ng + grp[l],
+                           (Tg[k] @ Ugl.transpose(1, 2)).reshape(-1, P * P))
+    return (corr_cc, corr_cg.reshape(Nc, Ng, 6, P),
+            corr_gg.reshape(Ng, Ng, P, P), Hcg.reshape(Nc, Ng, 6, P))
+
+
+def _dense_schur_factor_solve(Hcc, Hgg, bc, bg, lam, corr_cc, corr_cg,
+                              corr_gg, Hcg):
+    """Assemble the damped reduced camera system from the correction
+    blocks and solve it with a Cholesky factorization, in full float32
+    whatever the caller's TF32 setting. A factorization that fails (S
+    not positive definite) gives a NaN step, which LM rejects; no host
+    sync."""
+    Nc, Ng, _, P = Hcg.shape
+    Dc, Dg = 6 * Nc, P * Ng
+    with full_f32():
+        Acc = -corr_cc.reshape(Nc, Nc, 6, 6)
+        ic = torch.arange(Nc, device=Hcc.device)
+        Acc[ic, ic] += Hcc + lam * _diagonal_only(Hcc)
+        Agg = -corr_gg
+        ig = torch.arange(Ng, device=Hcc.device)
+        Agg[ig, ig] += Hgg + lam * _diagonal_only(Hgg)
+        Acg = Hcg - corr_cg
+        A = torch.cat([
+            torch.cat([Acc.permute(0, 2, 1, 3).reshape(Dc, Dc),
+                       Acg.permute(0, 2, 1, 3).reshape(Dc, Dg)], dim=1),
+            torch.cat([Acg.permute(1, 3, 0, 2).reshape(Dg, Dc),
+                       Agg.permute(0, 2, 1, 3).reshape(Dg, Dg)], dim=1)])
+        b = torch.cat([bc.reshape(-1), bg.reshape(-1)])
+        # masked cameras, non-optimized intrinsics slots and padding have
+        # all-zero rows: pin them to identity so the factorization is
+        # well-posed (their rhs is zero, so is their step)
+        d = torch.diagonal(A)
+        A = A + torch.diag((torch.abs(d) < 1e-12).to(A.dtype))
+        L, info = torch.linalg.cholesky_ex(A)
+        x = torch.cholesky_solve(b[:, None], L)[:, 0]
+        x = torch.where(info == 0, x, torch.full_like(x, float("nan")))
+    return x[:Dc].reshape(Nc, 6), x[Dc:].reshape(Ng, P)
+
+
+def build_cam_pair_tables(obs_cam, pt_idx_map, pt_idx_valid, n_cams,
+                          classes=(4, 16, 64, 256, 1024),
+                          max_entries=1 << 20, device="cpu"):
+    """The JAX package's camera-pair gather tables for its scatter-free
+    dense-Schur assembly on the TPU, built the same way (host-side numpy)
+    so that problems carry the same fields in both packages. This
+    package's dense solver does not read them.
+
+    Returns (tables, perm_fwd, perm_rev): tables is a tuple of
+    (kidx, lidx, valid) tensors; perm_fwd/perm_rev are (Nc*Nc, R) int32
+    row indices into [table rows | Nc diagonal rows | 1 zero row]."""
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else \
+            np.asarray(x)
+
+    def dev(x):
+        return torch.as_tensor(x, device=device)
+
+    idx = host(pt_idx_map)
+    val = host(pt_idx_valid)
+    Np, K = idx.shape
+    cam = host(obs_cam)[idx]
+    iu, ju = np.triu_indices(K, k=1)
+    k_e = idx[:, iu].reshape(-1)
+    l_e = idx[:, ju].reshape(-1)
+    v_e = (val[:, iu] & val[:, ju]).reshape(-1)
+    pid = (cam[:, iu].astype(np.int64) * n_cams +
+           cam[:, ju]).reshape(-1)
+    k_e, l_e, pid = k_e[v_e], l_e[v_e], pid[v_e]
+    order = np.argsort(pid, kind="stable")
+    k_e, l_e, pid = k_e[order], l_e[order], pid[order]
+    uids, starts, counts = np.unique(pid, return_index=True,
+                                     return_counts=True)
+    E, U = len(pid), len(uids)
+    caps = np.asarray(classes)
+    capmax = classes[-1]
+    cls = np.searchsorted(caps, np.minimum(np.maximum(counts, 1),
+                                           capmax))
+    cap_u = caps[cls]
+    nrows_u = -(-counts // cap_u)
+    u_of_e = np.repeat(np.arange(U), counts)
+    rank = np.arange(E) - np.repeat(starts, counts)
+    tables = []
+    row_ids = []  # ordered-pair id of every produced table row
+    for ci, cap in enumerate(classes):
+        sel_u = np.flatnonzero(cls == ci)
+        if len(sel_u) == 0:
+            continue
+        nrows = nrows_u[sel_u]
+        row_base = np.zeros(len(sel_u), np.int64)
+        np.cumsum(nrows[:-1], out=row_base[1:])
+        P_c = int(nrows.sum())
+        e_idx = np.flatnonzero(cls[u_of_e] == ci)
+        lu = np.searchsorted(sel_u, u_of_e[e_idx])
+        r = rank[e_idx]
+        row = row_base[lu] + r // cap
+        col = r % cap
+        kk = np.zeros((P_c, cap), np.int32)
+        ll = np.zeros((P_c, cap), np.int32)
+        vv = np.zeros((P_c, cap), bool)
+        kk[row, col] = k_e[e_idx]
+        ll[row, col] = l_e[e_idx]
+        vv[row, col] = True
+        # per-row pair ids (spilled groups repeat the id; ids ascend
+        # within the class, so forward-fill by running max)
+        rid = np.zeros(P_c, np.int64)
+        rid[row_base] = uids[sel_u]
+        filled = np.zeros(P_c, bool)
+        filled[row_base] = True
+        np.maximum.accumulate(np.where(filled, rid, 0), out=rid)
+        rows_per_chunk = max(1, max_entries // cap)
+        for s in range(0, P_c, rows_per_chunk):
+            e = min(s + rows_per_chunk, P_c)
+            tables.append((dev(kk[s:e]), dev(ll[s:e]), dev(vv[s:e])))
+            row_ids.append(rid[s:e])
+    n_table_rows = int(sum(len(r) for r in row_ids))
+    zero_row = n_table_rows + n_cams
+    # forward targets: table rows at their ordered-pair id, then the Nc
+    # diagonal segment rows at ids i*Nc+i
+    diag_ids = np.arange(n_cams, dtype=np.int64) * (n_cams + 1)
+    fwd_ids = np.concatenate([np.concatenate(row_ids)
+                              if row_ids else np.zeros(0, np.int64),
+                              diag_ids])
+    perm_fwd, _ = _build_idx_map(fwd_ids, n_cams * n_cams, zero_row,
+                                 bucket_min=1)
+    # reverse targets (transpose): table rows only, at (b*Nc + a)
+    tab_ids = fwd_ids[:n_table_rows]
+    rev_ids = (tab_ids % n_cams) * n_cams + tab_ids // n_cams
+    perm_rev, _ = _build_idx_map(rev_ids, n_cams * n_cams, zero_row,
+                                 bucket_min=1)
+    return tuple(tables), dev(perm_fwd), dev(perm_rev)
+
+
+def add_cam_pair_tables(prob: BAProblem,
+                        classes=(4, 16, 64, 256, 1024),
+                        max_entries=1 << 20,
+                        build_cam_maps=True) -> BAProblem:
+    """Attach the camera-pair tables and, with build_cam_maps, the
+    per-camera observation tables, as the JAX package does (host-side;
+    call after add_point_obs_map / pad_ba_problem). Accepted for parity:
+    this package's dense solver reads neither."""
+    if prob.pt_idx_map is None:
+        raise ValueError("add_cam_pair_tables requires pt_idx_map — "
+                         "call add_point_obs_map first")
+    dev = prob.obs_cam.device
+    tables, perm_fwd, perm_rev = build_cam_pair_tables(
+        prob.obs_cam, prob.pt_idx_map, prob.pt_idx_valid,
+        prob.extrinsics.shape[0], classes=classes,
+        max_entries=max_entries, device=dev)
+    out = prob._replace(cam_pair_tables=tables,
+                        cam_pair_perm_fwd=perm_fwd,
+                        cam_pair_perm_rev=perm_rev)
+    if build_cam_maps and prob.cam_idx_map is None:
+        M = prob.obs_cam.shape[0]
+        cm_, cv_ = _build_idx_map(
+            prob.obs_cam.cpu().numpy(), prob.extrinsics.shape[0], M - 1,
+            obs_valid=prob.obs_mask.cpu().numpy())
+        out = out._replace(cam_idx_map=torch.as_tensor(cm_, device=dev),
+                           cam_idx_valid=torch.as_tensor(cv_, device=dev))
+    return out
+
+
+# --------------------------------------------------------------------------
 # problem preparation (host side)
 
 def _full_like_rows(x, n, fill):
@@ -813,6 +1071,27 @@ def pad_ba_problem(prob: BAProblem, minimum: int = 8,
     if build_point_obs_map:
         out = add_point_obs_map(out)
     return out
+
+
+def bundle_adjust_host_f64(prob: BAProblem, opts: BAOptions):
+    """Final-polish BA in float64 (the counterpart of the JAX function of
+    this name, whose name it keeps).
+
+    The JAX version moves the problem to the host CPU only because a TPU
+    has no float64. The card computes in float64, so this casts every
+    float field to float64 and solves on the problem's own device (the
+    card by default). The kernels take float32 only, so this solve runs
+    the plain matvec and the plain blocks, as JAX's eligibility rule
+    decides (kernels_eligible is False in float64). Returns
+    (BAProblem in float64, BASummary)."""
+    def to64(x):
+        if x is None:
+            return None
+        if isinstance(x, tuple):
+            return tuple(to64(e) for e in x)
+        return x.to(torch.float64) if x.is_floating_point() else x
+
+    return bundle_adjust(BAProblem(*[to64(f) for f in prob]), opts)
 
 
 def bundle_adjust_bucketed(prob: BAProblem, opts: BAOptions):

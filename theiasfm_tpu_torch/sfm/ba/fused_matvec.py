@@ -1,5 +1,7 @@
-"""Fused Schur-complement matvec sweeps for the BA CG loop: the
-counterpart of theiasfm_tpu/sfm/ba/pallas_matvec.py.
+"""Fused observation sweeps of the bundle adjuster: the counterpart of
+theiasfm_tpu/sfm/ba/pallas_matvec.py. The Schur-complement matvec of the
+CG loop (pass1, pass2) and the normal-equation blocks of make_blocks
+(blocks, below).
 
 One matrix-free product S·v is two sweeps over the observations with a
 small torch step between them (bundle_adjustment.solve_normal_eqs):
@@ -16,9 +18,9 @@ same type. u is (2, M) f32, wp (Np, 3), yc (Nc, 6), yg (2P, 2) f32.
 Each wrapper dispatches on the device of its tensors: on the CPU it
 runs the plain PyTorch version beside it (the CPU tests use it); on a
 CUDA tensor it launches the hand-written kernel of
-csrc/schur_matvec.cu, or raises. There is no fallback from one to the
-other. Each CUDA launch adds one to its count in utils/dispatch.py
-("schur_pass1", "schur_pass2").
+csrc/schur_matvec.cu (csrc/ba_blocks.cu for blocks), or raises. There is
+no fallback from one to the other. Each CUDA launch adds one to its count
+in utils/dispatch.py ("schur_pass1", "schur_pass2", "ba_blocks").
 
 The kernels use the global point ids directly: the TPU's tile plan
 (tile_p0, local_pt, the point window) exists because VMEM could not
@@ -164,7 +166,7 @@ def _check_jacobians(jc, ji, jp):
 def _check_cuda(*tensors):
     dev = tensors[0].device
     if dev.type != "cuda":
-        raise RuntimeError(f"schur matvec kernels run on CUDA, got {dev}")
+        raise RuntimeError(f"the BA kernels run on CUDA, got {dev}")
     for t in tensors:
         if t.device != dev:
             raise RuntimeError(f"tensor on {t.device}, expected {dev}")
@@ -247,3 +249,82 @@ def pass2_camera_path(n_cams: int, P: int = 1) -> str:
     from ... import _kernels
     lib = _kernels.library()
     return "shared" if lib.schur_pass2_shared_cams(n_cams, P) else "global"
+
+
+# ---------------------------------------------------------------------------
+# the normal-equation blocks sweep (make_blocks): the counterpart of
+# pallas_matvec.FusedBlocks
+
+def blocks_plain(jc, ji, jp, r, obs_cam, obs_pt, n_cams, n_pts):
+    """The undamped normal-equation blocks of one observation sweep, in
+    the inputs' type. jc (M, 12), ji (M, 2P), jp (M, 6), r (M, 2).
+    Returns pt (n_pts, 12) = [Hpp9 | gp3] per point, cam (n_cams, 42) =
+    [Hcc36 | gc6] per camera, X = jiᵀji (2P, 2P), Y = jiᵀr (2P, 2)."""
+    M = jc.shape[0]
+    jc3, jp3 = jc.reshape(M, 2, 6), jp.reshape(M, 2, 3)
+    pt_m = torch.cat([torch.einsum("mka,mkb->mab", jp3, jp3).reshape(M, 9),
+                      torch.einsum("mka,mk->ma", jp3, r)], dim=1)
+    pt = torch.zeros((n_pts, 12), dtype=jc.dtype, device=jc.device)
+    pt.index_add_(0, obs_pt, pt_m)
+    cam_m = torch.cat([torch.einsum("mka,mkb->mab", jc3, jc3).reshape(M, 36),
+                       torch.einsum("mka,mk->ma", jc3, r)], dim=1)
+    cam = torch.zeros((n_cams, 42), dtype=jc.dtype, device=jc.device)
+    cam.index_add_(0, obs_cam, cam_m)
+    return pt, cam, ji.T @ ji, ji.T @ r
+
+
+def _check_blocks_inputs(jc, ji, jp, r):
+    M = jc.shape[0]
+    shapes = {"jc": (jc, 12), "jp": (jp, 6), "r": (r, 2)}
+    for name, (t, F) in shapes.items():
+        if t.dim() != 2 or tuple(t.shape) != (M, F):
+            raise ValueError(f"{name} must be ({M}, {F}), got "
+                             f"{tuple(t.shape)}")
+    if ji.dim() != 2 or ji.shape[0] != M or ji.shape[1] % 2:
+        raise ValueError(f"ji must be ({M}, 2P), got {tuple(ji.shape)}")
+    P = ji.shape[1] // 2
+    if not 1 <= P <= 10:
+        raise ValueError(f"P={P} outside 1..10")
+    for name, t in (("jc", jc), ("ji", ji), ("jp", jp), ("r", r)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"ba_blocks takes float32, {name} is {t.dtype}")
+    return M, P
+
+
+def blocks(jc, ji, jp, r, obs_cam, obs_pt, n_cams, n_pts):
+    """make_blocks' observation sweep (see blocks_plain). On the CPU the
+    plain version runs; on CUDA tensors the ba_blocks kernel of
+    csrc/ba_blocks.cu (float32 only; the inputs may be any strided (M, F)
+    views), or a raise."""
+    if jc.device.type == "cpu":
+        return blocks_plain(jc, ji, jp, r, obs_cam, obs_pt, n_cams, n_pts)
+    M, P = _check_blocks_inputs(jc, ji, jp, r)
+    _check_cuda(jc, ji, jp, r, obs_cam, obs_pt)
+    _check_vec("obs_cam", obs_cam, (M,), torch.int32)
+    _check_vec("obs_pt", obs_pt, (M,), torch.int32)
+    dev = jc.device
+    pt = torch.zeros((n_pts, 12), dtype=torch.float32, device=dev)
+    cam = torch.zeros((n_cams, 42), dtype=torch.float32, device=dev)
+    X = torch.zeros((2 * P, 2 * P), dtype=torch.float32, device=dev)
+    Y = torch.zeros((2 * P, 2), dtype=torch.float32, device=dev)
+    if M == 0:
+        return pt, cam, X, Y
+    from ... import _kernels
+    err = _kernels.library("ba_blocks").ba_blocks_f32(
+        jc.data_ptr(), ji.data_ptr(), jp.data_ptr(), r.data_ptr(),
+        *(s for t in (jc, ji, jp, r) for s in t.stride()),
+        obs_cam.data_ptr(), obs_pt.data_ptr(), pt.data_ptr(), cam.data_ptr(),
+        X.data_ptr(), Y.data_ptr(), M, P, n_cams,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "ba_blocks_f32")
+    count_dispatch("ba_blocks")
+    return pt, cam, X, Y
+
+
+def blocks_camera_path(n_cams: int, P: int = 1) -> str:
+    """Which camera reduction ba_blocks uses on the current CUDA device for
+    this many cameras: "shared" or "global" (see pass2_camera_path)."""
+    from ... import _kernels
+    flag = _kernels.library("ba_blocks").ba_blocks_shared_cams(n_cams, P)
+    _raise_on(-flag if flag < 0 else 0, "ba_blocks_shared_cams")
+    return "shared" if flag else "global"
