@@ -63,10 +63,12 @@ from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
 from theiasfm_tpu_torch.utils import (dispatch_counts, next_bucket,
                                       reset_dispatch_counts)
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate and the f32
-# rate outside the tensor cores (the kernels multiply in f32)
+# H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, the f32 rate
+# outside the tensor cores (the BA kernels multiply in f32) and the dense
+# TF32 tensor-core rate (top2_match's split-TF32 products)
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 SOURCE = "theiasfm_tpu_torch/csrc/schur_matvec.cu"
 PALLAS = "theiasfm_tpu/sfm/ba/pallas_matvec.py"
@@ -75,9 +77,10 @@ REPLACES = {("schur_pass1", "t"): f"{PALLAS}:259",
             ("schur_pass2", "t"): f"{PALLAS}:333",
             ("schur_pass1", "row"): f"{PALLAS}:147",
             ("schur_pass2", "row"): f"{PALLAS}:203"}
-# max |kernel - plain| <= TOL * max|plain|: atomics reorder the f32
-# sums; under bf16 a rounded intermediate (d = u - Jp·zp) may land one
-# bf16 ulp apart when the two sum Jp·zp in another order
+# max |kernel - plain| <= TOL * max|plain|: atomics (pass 1) and the
+# camera segments (pass 2) reorder the f32 sums; under bf16 a rounded
+# intermediate (d = u - Jp·zp) may land one bf16 ulp apart when the two
+# sum Jp·zp in another order
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # kernel shapes: (name, cameras, points, observations per point)
 SHAPES = [("notre_dame", 550, 140_000, 4),
@@ -123,13 +126,16 @@ class Timer:
     """Median time of one call, from CUDA events around each call, after
     warm-up. cold: a buffer larger than the 50 MB L2 is zeroed before each
     timed call, so the call finds its inputs in device memory, and the
-    zeroing keeps the card busy while the host enqueues the call: the
-    events then time the device's work alone. Without it the calls run
-    back to back, and where the host takes longer to enqueue a call than
-    the card to run it, the events time the host."""
+    zeroing (1 GiB, some 0.3 ms) keeps the card busy while the host
+    enqueues the call: the events then time the device's work alone (a
+    256 MiB zeroing, some 0.08 ms, was shorter than the host's enqueue of
+    a Schur pass on a slow host, and the events then timed the host).
+    Without it the calls run back to back, and where the host takes
+    longer to enqueue a call than the card to run it, the events time the
+    host."""
 
     def __init__(self):
-        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+        self.flush = torch.empty(1 << 30, dtype=torch.uint8, device="cuda")
 
     def ms(self, fn, reps=20, cold=True):
         for _ in range(3):
@@ -217,7 +223,8 @@ def phase_kernels(timer):
         vc = torch.randn(Nc, 6, device="cuda")
         vg = torch.randn(P, device="cuda")
         zp = torch.randn(Np, 3, device="cuda")
-        cam_path = fm.pass2_camera_path(Nc, P)
+        # pass 2's camera index, built once per solve in bundle_adjust
+        cam_index = fm.camera_index(ids[0], Nc)
         for dtype in (torch.float32, torch.bfloat16):
             for layout in ("t", "row"):
                 if layout == "t":
@@ -228,8 +235,11 @@ def phase_kernels(timer):
                 u_ref, wp_ref = fm.pass1_plain(*js, *ids, vc, vg, Np)
                 yc_ref, yg_ref = fm.pass2_plain(*js, *ids, u_ref, zp, Nc)
                 u, wp = fm.pass1(*js, *ids, vc, vg, Np)
-                yc, yg = fm.pass2(*js, *ids, u_ref, zp, Nc)
+                yc, yg = fm.pass2(*js, *ids, u_ref, zp, Nc, cam_index)
+                yc2, yg2 = fm.pass2(*js, *ids, u_ref, zp, Nc, cam_index)
                 torch.cuda.synchronize()
+                check(torch.equal(yc, yc2) and torch.equal(yg, yg2),
+                      f"{shape} {dtype} {layout}: pass 2 not repeatable")
                 errs = {}
                 for key, got, ref in (("u", u, u_ref), ("wp", wp, wp_ref),
                                       ("yc", yc, yc_ref), ("yg", yg, yg_ref)):
@@ -247,7 +257,8 @@ def phase_kernels(timer):
                         lambda: fm.pass1_plain(*js, *ids, vc, vg, Np),
                         ("u", "wp")),
                     "schur_pass2": (
-                        lambda: fm.pass2(*js, *ids, u_ref, zp, Nc),
+                        lambda: fm.pass2(*js, *ids, u_ref, zp, Nc,
+                                         cam_index),
                         lambda: fm.pass2_plain(*js, *ids, u_ref, zp, Nc),
                         ("yc", "yg")),
                 }
@@ -268,11 +279,9 @@ def phase_kernels(timer):
                         bytes=nbytes, ops=ops,
                         bound_ms=max(t_bytes, t_ops),
                         bound_by="bytes" if t_bytes >= t_ops else "operations")
-                    if name == "schur_pass2":
-                        rec["camera_path"] = cam_path
                     emit("kernels", **rec)
                     results[(name, shape, rec["dtype"], layout)] = rec
-        del jac32, ids, vc, zp, u_ref, wp_ref, yc_ref, yg_ref
+        del jac32, ids, vc, zp, u_ref, wp_ref, yc_ref, yg_ref, cam_index
         torch.cuda.empty_cache()
     return results
 
@@ -861,9 +870,10 @@ def phase_matcher_kernels(timer):
                 fwd, rev)
         n_valid = int(w_got[1].sum())
 
-        ops = 2 * B * N * N * D
+        # split TF32: three tensor-core products per dot product
+        ops = 3 * 2 * B * N * N * D
         nbytes = 4 * (2 * B * N * D + B * N) + 12 * B * N
-        t_ops = ops / F32_OPS_PER_S * 1e3
+        t_ops = ops / TF32_OPS_PER_S * 1e3
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         d2t = d2.transpose(1, 2)
         rec = dict(

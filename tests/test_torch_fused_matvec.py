@@ -171,3 +171,30 @@ def test_plain_passes_match_dense_algebra(P):
     yg_ref = Ji.astype(np.float64).T @ d
     for got, ref in ((u.T, u_ref), (wp, wp_ref), (yc, yc_ref), (yg, yg_ref)):
         np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("Nc", [1, 7, 40])
+def test_camera_index_segments_match_index_add(Nc):
+    """Pass 2's camera index: cam_order is a stable argsort of obs_cam
+    (each camera's observations stay in point order), cam_start its
+    segment starts (cameras without observations give empty segments),
+    and the plain segmented sum over it (stage B's plain version) equals
+    index_add_ to float32 rounding."""
+    rng = np.random.default_rng(9)
+    M = 1000
+    obs_cam = rng.integers(0, Nc, M).astype(np.int32)
+    if Nc > 3:
+        obs_cam[obs_cam == 3] = 2          # camera 3 has no observation
+    cam_index = fm.camera_index(torch.tensor(obs_cam), Nc)
+    order, start = cam_index.order, cam_index.start
+    assert order.dtype == start.dtype == torch.int32
+    # the kernel's workspaces live on CUDA only
+    assert cam_index.y_work is None and cam_index.g_work is None
+    assert (order.numpy() == np.argsort(obs_cam, kind="stable")).all()
+    assert start.numpy().tolist() == [0] + np.cumsum(
+        np.bincount(obs_cam, minlength=Nc)).tolist()
+    y = torch.tensor(rng.normal(size=(M, 6)), dtype=torch.float32)
+    ref = torch.zeros((Nc, 6)).index_add_(0, torch.tensor(obs_cam).long(), y)
+    got = fm.camera_sums_plain(y, cam_index)
+    assert got.shape == (Nc, 6)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)

@@ -41,25 +41,27 @@ def _inputs(rng, M, Nc, Np, P, sorted_pts, dtype):
 @pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
 @pytest.mark.parametrize("sorted_pts", [True, False],
                          ids=["sorted", "unsorted"])
-@pytest.mark.parametrize("Nc", [40, 12000], ids=["shared", "global"])
+@pytest.mark.parametrize("Nc", [40, 1300, 12000],
+                         ids=["nc40", "nc1300", "nc12000"])
 def test_kernels_match_plain_on_card(bf16, sorted_pts, Nc):
-    """Both layouts; unsorted point ids exercise the warp run detection,
-    Nc=12000 the global-atomics camera path of pass 2. Tolerance relative
-    to max|ref|: atomics reorder the f32 sums, and under bf16 a rounded
-    intermediate may land one bf16 ulp apart."""
+    """Both layouts; unsorted point ids exercise pass 1's warp run
+    detection; pass 2 takes one path at every camera count (12,000 was
+    the global-atomics case of the earlier design). Tolerance relative to
+    max|ref|: pass 1's atomics and pass 2's segment order reorder the f32
+    sums, and under bf16 a rounded intermediate may land one bf16 ulp
+    apart."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    if Nc == 12000:
-        assert fm.pass2_camera_path(Nc) == "global"
     M, Np, P = 3000, 500, 2
     x = _inputs(np.random.default_rng(1), M, Nc, Np, P, sorted_pts,
                 torch.bfloat16 if bf16 else torch.float32)
     tol = 1e-2 if bf16 else 1e-4
+    cam_index = fm.camera_index(x["ids"][0], Nc)
     for js in (x["js_t"], x["js_row"]):
         reset_dispatch_counts()
         u, wp = fm.pass1(*js, *x["ids"], x["vc"], x["vg"], Np)
         u_ref, wp_ref = fm.pass1_plain(*js, *x["ids"], x["vc"], x["vg"], Np)
-        yc, yg = fm.pass2(*js, *x["ids"], u_ref, x["zp"], Nc)
+        yc, yg = fm.pass2(*js, *x["ids"], u_ref, x["zp"], Nc, cam_index)
         yc_ref, yg_ref = fm.pass2_plain(*js, *x["ids"], u_ref, x["zp"], Nc)
         torch.cuda.synchronize()
         assert dispatch_counts() == {"schur_pass1": 1, "schur_pass2": 1}
@@ -67,6 +69,28 @@ def test_kernels_match_plain_on_card(bf16, sorted_pts, Nc):
                          (yg, yg_ref)):
             err = (got - ref).abs().max().item()
             assert err <= tol * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_pass2_bitwise_repeatable_on_card(bf16):
+    """pass 2 takes no atomics: two launches on the same inputs give the
+    same bits, through one camera index (its workspace reused) and
+    through a second one built anew."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Nc, Np, P = 200_000, 550, 50_000, 1
+    x = _inputs(np.random.default_rng(4), M, Nc, Np, P, True,
+                torch.bfloat16 if bf16 else torch.float32)
+    u, _ = fm.pass1_plain(*x["js_t"], *x["ids"], x["vc"], x["vg"], Np)
+    cam_index = fm.camera_index(x["ids"][0], Nc)
+    a = fm.pass2(*x["js_t"], *x["ids"], u, x["zp"], Nc, cam_index)
+    b = fm.pass2(*x["js_t"], *x["ids"], u, x["zp"], Nc, cam_index)
+    c = fm.pass2(*x["js_t"], *x["ids"], u, x["zp"], Nc,
+                 fm.camera_index(x["ids"][0], Nc))
+    torch.cuda.synchronize()
+    for p, q, r in zip(a, b, c):
+        assert torch.equal(p, q) and torch.equal(p, r)
 
 
 @pytest.mark.cuda
@@ -83,6 +107,14 @@ def test_wrapper_rejects_bad_inputs_on_card():
         fm.pass1(js[0].half(), *js[1:], oc, op, x["vc"], x["vg"], Np)
     with pytest.raises(RuntimeError):
         fm.pass1(*js, oc, op, x["vc"].cpu(), x["vg"], Np)
+    # pass 2 on the card needs the camera index of the card's obs_cam
+    u, zp = x["vc"].new_zeros(2, M), x["zp"]
+    with pytest.raises(ValueError):
+        fm.pass2(*js, oc, op, u, zp, Nc)
+    with pytest.raises(ValueError):
+        fm.pass2(*js, oc, op, u, zp, Nc, fm.camera_index(oc.cpu(), Nc))
+    with pytest.raises(ValueError):
+        fm.pass2(*js, oc, op, u, zp, Nc + 1, fm.camera_index(oc, Nc))
 
 
 @pytest.mark.cuda
@@ -176,6 +208,31 @@ def test_top2_match_matches_plain_on_card(B, M, N, D):
     torch.cuda.synchronize()
     assert dispatch_counts() == {"top2_match": 1}
     _top2_agree(got, tfm.top2_plain(d1, d2, n2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [100, 7])
+def test_top2_match_wide_ctas_on_card(D):
+    """Many pairs (several waves of CTAs), ragged M and N over both
+    CTAs of a cluster, both copy widths, and equal keys in both halves
+    of the key tiles: the lowest index wins across the cluster's merge."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from theiasfm_tpu_torch.matching import fused_matcher as tfm
+    rng = np.random.default_rng(6)
+    B, M, N = 300, 130, 300
+    d1 = rng.normal(size=(B, M, D)).astype(np.float32)
+    d2 = rng.normal(size=(B, N, D)).astype(np.float32)
+    d2[:, 140] = d2[:, 3]
+    d2[:, 290] = d2[:, 3]
+    d1[:, 0] = d2[:, 3] + np.float32(0.01)
+    d1, d2 = (torch.tensor(x, device="cuda") for x in (d1, d2))
+    n2 = (d2 * d2).sum(-1)
+    got = tfm.top2(d1, d2, n2)
+    torch.cuda.synchronize()
+    _top2_agree(got, tfm.top2_plain(d1, d2, n2))
+    assert (got[2][:, 0] == 3).all()
+    assert torch.equal(got[0][:, 0], got[1][:, 0])
 
 
 @pytest.mark.cuda

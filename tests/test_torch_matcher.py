@@ -244,3 +244,86 @@ def test_top2_refuses_other_devices():
     d = torch.zeros((1, 4, 8), device="meta")
     with pytest.raises(RuntimeError, match="CPU .* or on CUDA"):
         tfm.top2(d, d, torch.zeros((1, 4), device="meta"))
+
+
+# ------------------------------------------- split TF32 (top2_match's math)
+
+def _desc_stack_np(rng, B, N, D, lo, hi):
+    """chip_smoke.py's _desc_stack in numpy: B pairs of non-negative unit
+    rows padded with zeros to N, lo..hi valid rows each, half of each
+    pair's keys noisy copies of its queries; keys past the valid rows
+    get the squared norm 1e30."""
+    d = np.zeros((2, B, N, D), np.float32)
+    m = np.zeros((2, B, N), bool)
+    for b in range(B):
+        n1, n2 = rng.integers(lo, hi + 1, 2)
+        a = np.abs(rng.normal(size=(n1, D)))
+        k = np.abs(rng.normal(size=(n2, D)))
+        share = min(n1, n2) // 2
+        k[:share] = a[rng.permutation(n1)[:share]] + \
+            0.3 * np.abs(rng.normal(size=(share, D)))
+        for i, (x, n) in enumerate(((a, n1), (k, n2))):
+            d[i, b, :n] = x / np.linalg.norm(x, axis=1, keepdims=True)
+            m[i, b, :n] = True
+    n2 = np.where(m[1], (d[1] * d[1]).sum(-1), 1e30).astype(np.float32)
+    return d[0], d[1], n2
+
+
+def _tf32(x):
+    """Round float32 to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as cvt.rna.tf32.f32 forms the kernel's hi."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _tf32_read(x):
+    """The TF32 value the tensor core reads from a float32 operand: the
+    13 low mantissa bits dropped."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return (bits & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _top2_from_dots(ab, n2):
+    """(best, second, idx) of n2 − 2·ab over the keys, in float32."""
+    dist = (n2[:, None, :] - 2.0 * ab).astype(np.float32)
+    idx = dist.argmin(-1)
+    best = np.take_along_axis(dist, idx[..., None], -1)[..., 0]
+    np.put_along_axis(dist, idx[..., None], np.inf, -1)
+    return best, dist.min(-1), idx
+
+
+def _emulated_top2(d1, d2, n2, split):
+    """The kernel's products on the CPU: TF32 operands, exact products,
+    sums rounded to float32 once. split: hi·hi + hi·lo + lo·hi, each
+    operand split into hi = tf32(x) (rounded) and lo = x − hi (of which
+    the tensor core reads the TF32 bits); otherwise one TF32 product of
+    the rounded operands."""
+    f64 = np.float64
+    h1, h2 = _tf32(d1), _tf32(d2)
+    ab = np.einsum("bmd,bnd->bmn", h1.astype(f64), h2.astype(f64))
+    if split:
+        l1, l2 = _tf32_read(d1 - h1), _tf32_read(d2 - h2)
+        ab += np.einsum("bmd,bnd->bmn", h1.astype(f64), l2.astype(f64))
+        ab += np.einsum("bmd,bnd->bmn", l1.astype(f64), h2.astype(f64))
+    return _top2_from_dots(ab.astype(np.float32), n2)
+
+
+@pytest.mark.parametrize("split", [True, False], ids=["split", "one_tf32"])
+def test_split_tf32_meets_matcher_tolerance(split):
+    """Split TF32 keeps best and second within 1e-5 of the largest entry
+    of top2_plain, with no idx difference away from a near-tie; one TF32
+    product does not meet that tolerance (why the kernel splits)."""
+    rng = np.random.default_rng(21)
+    d1, d2, n2 = _desc_stack_np(rng, 3, 320, 128, 200, 300)
+    rb, rs, ri = (x.numpy() for x in tfm.top2_plain(
+        *map(torch.from_numpy, (d1, d2, n2))))
+    gb, gs, gi = _emulated_top2(d1, d2, n2, split)
+    err = max(np.abs(gb - rb).max(), np.abs(gs - rs).max())
+    scale = max(np.abs(rb).max(), np.abs(rs).max())
+    near_tie = np.abs(rs - rb) <= 1e-5 * np.abs(rb)
+    if split:
+        assert err <= 1e-5 * scale, (err, scale)
+        assert (gi == ri)[~near_tie].all()
+    else:
+        assert err > 1e-5 * scale, (err, scale)

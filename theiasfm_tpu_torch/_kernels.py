@@ -42,13 +42,12 @@ _SIGNATURES = {"ba_blocks": {
     # jc, ji, jp, 6 strides, obs_cam, obs_pt, vc, vg, u, wp, M, P, stream
     "schur_pass1_f32": [_P, _P, _P] + _STRIDES + [_P] * 6 + [_LL, _I, _P],
     "schur_pass1_bf16": [_P, _P, _P] + _STRIDES + [_P] * 6 + [_LL, _I, _P],
-    # jc, ji, jp, 6 strides, obs_cam, obs_pt, u, zp, yc, yg, M, P, Nc,
-    # stream
-    "schur_pass2_f32": [_P, _P, _P] + _STRIDES + [_P] * 6 +
-    [_LL, _I, _I, _P],
-    "schur_pass2_bf16": [_P, _P, _P] + _STRIDES + [_P] * 6 +
-    [_LL, _I, _I, _P],
-    "schur_pass2_shared_cams": [_I, _I],
+    # jc, ji, jp, 6 strides, obs_pt, u, zp, cam_order, cam_start, y_work,
+    # g_work, yc, yg, M, P, Nc, part_blocks, stream
+    "schur_pass2_f32": [_P, _P, _P] + _STRIDES + [_P] * 9 +
+    [_LL, _I, _I, _I, _P],
+    "schur_pass2_bf16": [_P, _P, _P] + _STRIDES + [_P] * 9 +
+    [_LL, _I, _I, _I, _P],
 }, "top2_match": {
     # d1, d2, n2, best, second, idx, B, M, N, D, stream
     "top2_match_f32": [_P] * 6 + [_I] * 4 + [_P],

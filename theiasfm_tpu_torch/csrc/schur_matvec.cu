@@ -19,35 +19,47 @@
 //
 // What bounds them on this card: bytes. Each pass reads the three
 // jacobians (18 + 2P values per observation: 40 bytes at P = 1 in bf16,
-// 80 in f32) plus two int32 ids and 8 bytes of u (written by pass 1,
-// read by pass 2): 56 bytes per observation in bf16. It does 45–55
-// operations per observation. At 560,128 observations that is about
-// 33 MB per pass, about 10 µs at the H100 SXM's published 3.35 TB/s;
-// the operations need under 1 µs at its 67 TFLOP/s f32 rate. The design therefore reads every jacobian
-// element exactly once, coalesced along M in the transposed layout, and
-// keeps the reductions off device memory as far as it can:
+// 80 in f32) plus int32 ids and 8 bytes of u (written by pass 1, read by
+// pass 2). It does 45–55 operations per observation: under 1 µs at the
+// H100 SXM's 67 TFLOP/s f32 rate for 560,128 observations, against
+// about 10 µs per pass for its inputs at the published 3.35 TB/s. The
+// design therefore reads every jacobian element exactly once, coalesced
+// along M in the transposed layout:
 //
 // * The TPU kernels rely on the sequential TPU grid (overlapping point
 //   windows accumulated by an unguarded read-modify-write; camera sums
 //   carried in one VMEM scratch across the grid). Blocks here run
-//   concurrently and in no order, so every cross-block sum is atomic.
+//   concurrently and in no order.
 // * Point side (pass 1): observations are sorted by point, so each warp
 //   reduces every run of equal point ids with a segmented shuffle scan
 //   and only the run's first lane issues the three atomicAdds. Runs are
 //   found from adjacent ids, so an unsorted order stays correct (it only
 //   makes runs shorter). No cumsum-and-difference: that cancels
 //   catastrophically on monotone sums.
-// * Camera side (pass 2): camera ids are random. When an (Nc, 6) f32
-//   partial fits in the block's shared memory (Nc·24 bytes, up to about
-//   9,400 cameras in the 227 KB opt-in limit), a grid of one or two
-//   1024-thread blocks per SM accumulates with shared-memory atomics and
-//   flushes each non-zero partial with one global atomic. Above that the
-//   kernel adds straight into global memory. The choice is made from
-//   Nc and the device limit (schur_pass2_shared_cams) and the wrapper
-//   reports it.
-// * Group side (pass 2): each warp reduces its 4P products with
-//   butterfly shuffles into a per-warp shared slot; one atomic per value
-//   per block at the end.
+// * Pass 2 runs in two stages and takes no atomics, so two launches on
+//   the same inputs give the same bits. Stage A (schur_pass2_obs), in
+//   point order: d and the six products y = Jcᵀd per observation, written
+//   as one 24-byte row of an (M, 6) f32 workspace; the 4P group products
+//   Jiᵀd summed in registers across the grid-stride loop, warp-reduced
+//   once at the end and stored as one partial per block. Stage B
+//   (schur_pass2_cam): 1–8 warps per camera (about 4 rows per lane on
+//   average) sum its rows of y in the order of the camera index
+//   (cam_order, a stable argsort of obs_cam, with cam_start the segment
+//   starts; built once per solve), lane by lane, then by a butterfly and
+//   across the camera's warps in warp order, and store yc once; one more
+//   block sums the group partials in block order into yg. The same path serves
+//   every camera count. An earlier design added every product into
+//   shared- or device-memory camera slots with atomics: 6 per
+//   observation, plus a flush of every block's (Nc, 6) partial.
+// * Stage A moves about 88 bytes per observation in bf16 (40 of
+//   jacobians, 4 of point id, 8 of u, 12 of zp, 24 of y written) and
+//   stage B about 36 (4 of index, a 24-byte row gathered as some 32 bytes
+//   of sectors): some 70 MB, 0.021 ms at 3.35 TB/s, at 560,128
+//   observations, twice the inputs' own bytes. (Rows padded to one
+//   32-byte sector measured no faster.) At Notre-Dame the workspace
+//   (13 MB) stays in the 50 MB L2; at 5M observations it does not, and
+//   stage B's gather of random rows from device memory costs as much as
+//   stage A.
 //
 // Rounding follows the TPU kernels so that the bf16 path means the same
 // thing: vc is gathered in f32 and the gathered row rounded to the
@@ -56,12 +68,15 @@
 // vg is rounded to the matvec type. Products are formed in f32 from the
 // (possibly bf16) inputs and every sum accumulates in f32 — the TPU
 // multiplies bf16 values in bf16, so the two differ by at most one bf16
-// ulp per product. Atomic sums make the summation order, and so the
-// last f32 bits, vary from run to run.
+// ulp per product. Pass 1's atomic point sums make their summation order,
+// and so their last f32 bits, vary from run to run; pass 2's do not.
 //
-// The kernels allocate nothing: the wrapper hands in zero-filled outputs
-// and the stream (PyTorch's current stream), and each entry point
-// returns cudaGetLastError() for the wrapper to check.
+// The kernels allocate nothing: the wrapper hands in the outputs (wp
+// zero-filled, the rest written whole), pass 2's workspaces (allocated
+// once per solve with the camera index) and the stream (PyTorch's
+// current stream), and each entry point returns cudaGetLastError() for
+// the wrapper to check. No entry point queries the device: pass 2's grid
+// is the block capacity of g_work, sized once per device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,7 +84,6 @@
 namespace {
 
 constexpr int kPass1Threads = 256;
-constexpr int kPass2Threads = 1024;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load(const float* p, long long i) {
@@ -168,105 +182,133 @@ schur_pass1_kernel(const T* __restrict__ jc, const T* __restrict__ ji,
   }
 }
 
-// kSharedCams: accumulate the (Nc, 6) camera sums in shared memory and
-// flush once per block; otherwise add straight into global memory.
-// Dynamic shared memory: [Nc * 6 camera partials if kSharedCams]
-// [warps * 4P group partials].
-template <typename T, bool kSharedCams>
-__global__ void __launch_bounds__(kPass2Threads)
-schur_pass2_kernel(const T* __restrict__ jc, const T* __restrict__ ji,
-                   const T* __restrict__ jp, long long jc_sf, long long jc_sm,
-                   long long ji_sf, long long ji_sm, long long jp_sf,
-                   long long jp_sm, const int* __restrict__ obs_cam,
-                   const int* __restrict__ obs_pt,
-                   const float* __restrict__ u, const float* __restrict__ zp,
-                   float* __restrict__ yc, float* __restrict__ yg, long long M,
-                   int P, int Nc) {
-  extern __shared__ float smem[];
-  const int n_cam_s = kSharedCams ? Nc * 6 : 0;
-  const int G = 4 * P;  // (2P, 2) group values
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  float* yc_s = smem;
-  float* yg_s = smem + n_cam_s;  // [warp][G]
-  for (int i = threadIdx.x; i < n_cam_s + n_warps * G; i += blockDim.x)
-    smem[i] = 0.f;
-  __syncthreads();
-  float* yc_dst = kSharedCams ? yc_s : yc;
+constexpr int kPass2ObsThreads = 256;
+constexpr int kPass2CamWarps = 8;  // cameras per block of stage B
+constexpr int kMaxP = 10;
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // every lane of a warp runs the same number of iterations (the bound
-  // is rounded up to a whole warp) so the group shuffles stay converged
-  const long long M_warp = (M + 31) / 32 * 32;
-  for (long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       m < M_warp; m += stride) {
-    const bool valid = m < M;
-    float a = 0.f, b = 0.f;
-    if (valid) {
-      const long long cam = obs_cam[m];
-      const long long pt = obs_pt[m];
-      const float z0 = round_mv<T>(zp[pt * 3 + 0]);
-      const float z1 = round_mv<T>(zp[pt * 3 + 1]);
-      const float z2 = round_mv<T>(zp[pt * 3 + 2]);
-      const long long jp_m = m * jp_sm;
-      const float u20 = load(jp, 0 * jp_sf + jp_m) * z0 +
-                        load(jp, 1 * jp_sf + jp_m) * z1 +
-                        load(jp, 2 * jp_sf + jp_m) * z2;
-      const float u21 = load(jp, 3 * jp_sf + jp_m) * z0 +
-                        load(jp, 4 * jp_sf + jp_m) * z1 +
-                        load(jp, 5 * jp_sf + jp_m) * z2;
-      a = round_mv<T>(u[m] - u20);
-      b = round_mv<T>(u[M + m] - u21);
-      const long long jc_m = m * jc_sm;
-      float* yc_cam = yc_dst + cam * 6;
+// Stage A of pass 2, in point order: y[m] = Jcᵀd (M, 6) and one (4P,)
+// partial of Jiᵀd per block, in a fixed order: every thread sums its
+// observations of the grid-stride loop, each warp reduces by a butterfly
+// and warp partials are added in warp order.
+template <typename T, int P>
+__global__ void __launch_bounds__(kPass2ObsThreads)
+schur_pass2_obs_kernel(const T* __restrict__ jc, const T* __restrict__ ji,
+                       const T* __restrict__ jp, long long jc_sf,
+                       long long jc_sm, long long ji_sf, long long ji_sm,
+                       long long jp_sf, long long jp_sm,
+                       const int* __restrict__ obs_pt,
+                       const float* __restrict__ u,
+                       const float* __restrict__ zp, float* __restrict__ y,
+                       float* __restrict__ g_part, long long M) {
+  constexpr int G = 4 * P;  // (2P, 2) group values
+  constexpr int kWarps = kPass2ObsThreads / 32;
+  __shared__ float g_warp[kWarps][G];
+  float g[G];
 #pragma unroll
-      for (int i = 0; i < 6; ++i) {
-        const float y = load(jc, i * jc_sf + jc_m) * a +
-                        load(jc, (6 + i) * jc_sf + jc_m) * b;
-        atomicAdd(yc_cam + i, y);
-      }
-    }
+  for (int i = 0; i < G; ++i) g[i] = 0.f;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x; m < M;
+       m += stride) {
+    const long long pt = obs_pt[m];
+    const float z0 = round_mv<T>(zp[pt * 3 + 0]);
+    const float z1 = round_mv<T>(zp[pt * 3 + 1]);
+    const float z2 = round_mv<T>(zp[pt * 3 + 2]);
+    const long long jp_m = m * jp_sm;
+    const float u20 = load(jp, 0 * jp_sf + jp_m) * z0 +
+                      load(jp, 1 * jp_sf + jp_m) * z1 +
+                      load(jp, 2 * jp_sf + jp_m) * z2;
+    const float u21 = load(jp, 3 * jp_sf + jp_m) * z0 +
+                      load(jp, 4 * jp_sf + jp_m) * z1 +
+                      load(jp, 5 * jp_sf + jp_m) * z2;
+    const float a = round_mv<T>(u[m] - u20);
+    const float b = round_mv<T>(u[M + m] - u21);
+    const long long jc_m = m * jc_sm;
+    float yv[6];
+#pragma unroll
+    for (int i = 0; i < 6; ++i)
+      yv[i] = load(jc, i * jc_sf + jc_m) * a +
+              load(jc, (6 + i) * jc_sf + jc_m) * b;
+    float2* row = reinterpret_cast<float2*>(y + m * 6);
+    row[0] = make_float2(yv[0], yv[1]);
+    row[1] = make_float2(yv[2], yv[3]);
+    row[2] = make_float2(yv[4], yv[5]);
     const long long ji_m = m * ji_sm;
+#pragma unroll
     for (int f = 0; f < 2 * P; ++f) {
-      const float j = valid ? load(ji, f * ji_sf + ji_m) : 0.f;
-      const float s0 = warp_sum(j * a);
-      const float s1 = warp_sum(j * b);
-      if (lane == 0) {
-        yg_s[warp * G + 2 * f] += s0;
-        yg_s[warp * G + 2 * f + 1] += s1;
-      }
+      const float j = load(ji, f * ji_sf + ji_m);
+      g[2 * f] += j * a;
+      g[2 * f + 1] += j * b;
     }
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int i = 0; i < G; ++i) {
+    const float s = warp_sum(g[i]);
+    if (lane == 0) g_warp[warp][i] = s;
   }
   __syncthreads();
-  if (kSharedCams) {
-    for (int i = threadIdx.x; i < n_cam_s; i += blockDim.x) {
-      const float v = yc_s[i];
-      if (v != 0.f) atomicAdd(yc + i, v);
+  if (threadIdx.x < G) {
+    float s = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) s += g_warp[w][threadIdx.x];
+    g_part[(long long)blockIdx.x * G + threadIdx.x] = s;
+  }
+}
+
+// Stage B of pass 2: W warps per camera (W = 1, 2, 4 or 8, from the mean
+// segment length) sum the camera's rows of y in cam_order: lane l of
+// warp w takes observations l + 32w, l + 32(w + W), ...; then a butterfly
+// per warp and the W warp sums in warp order; yc is stored once. The last
+// block sums the n_part group partials of stage A in block order, one
+// warp per value, into yg.
+__global__ void __launch_bounds__(kPass2CamWarps * 32)
+schur_pass2_cam_kernel(const float* __restrict__ y,
+                       const int* __restrict__ cam_order,
+                       const int* __restrict__ cam_start,
+                       const float* __restrict__ g_part, int n_part, int G,
+                       float* __restrict__ yc, float* __restrict__ yg,
+                       int Nc, int W) {
+  __shared__ float s_warp[kPass2CamWarps][6];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (blockIdx.x == gridDim.x - 1) {
+    for (int v = warp; v < G; v += kPass2CamWarps) {
+      float s = 0.f;
+      for (int i = lane; i < n_part; i += 32)
+        s += g_part[(long long)i * G + v];
+      s = warp_sum(s);
+      if (lane == 0) yg[v] = s;
+    }
+    return;
+  }
+  const int sub = warp % W;
+  const int cam = blockIdx.x * (kPass2CamWarps / W) + warp / W;
+  float s[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+  if (cam < Nc) {
+    const int lo = cam_start[cam], hi = cam_start[cam + 1];
+#pragma unroll 4
+    for (int i = lo + 32 * sub + lane; i < hi; i += 32 * W) {
+      const float2* row =
+          reinterpret_cast<const float2*>(y + (long long)cam_order[i] * 6);
+      const float2 r0 = row[0], r1 = row[1], r2 = row[2];
+      s[0] += r0.x;
+      s[1] += r0.y;
+      s[2] += r1.x;
+      s[3] += r1.y;
+      s[4] += r2.x;
+      s[5] += r2.y;
     }
   }
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < n_warps; ++w) s += yg_s[w * G + g];
-    atomicAdd(yg + g, s);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) {
+    const float v = warp_sum(s[i]);
+    if (lane == 0) s_warp[warp][i] = v;
   }
-}
-
-int smem_optin_limit() {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return limit;
-}
-
-size_t pass2_group_bytes(int P) {
-  return (size_t)(kPass2Threads / 32) * 4 * P * sizeof(float);
-}
-
-bool pass2_shared_cams(int Nc, int P) {
-  return (size_t)Nc * 6 * sizeof(float) + pass2_group_bytes(P) <=
-         (size_t)smem_optin_limit();
+  __syncthreads();
+  if (sub == 0 && lane < 6 && cam < Nc) {
+    float v = 0.f;
+    for (int w = 0; w < W; ++w) v += s_warp[warp + w][lane];
+    yc[(long long)cam * 6 + lane] = v;
+  }
 }
 
 template <typename T>
@@ -284,50 +326,57 @@ int launch_pass1(const void* jc, const void* ji, const void* jp,
   return (int)cudaGetLastError();
 }
 
-template <typename T, bool kSharedCams>
-int launch_pass2_path(const void* jc, const void* ji, const void* jp,
-                      long long jc_sf, long long jc_sm, long long ji_sf,
-                      long long ji_sm, long long jp_sf, long long jp_sm,
-                      const int* obs_cam, const int* obs_pt, const float* u,
-                      const float* zp, float* yc, float* yg, long long M,
-                      int P, int Nc, void* stream) {
-  auto kernel = schur_pass2_kernel<T, kSharedCams>;
-  const size_t smem =
-      (kSharedCams ? (size_t)Nc * 6 * sizeof(float) : 0) +
-      pass2_group_bytes(P);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kPass2Threads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) per_sm = 1;
-  const long long needed = (M + kPass2Threads - 1) / kPass2Threads;
-  long long blocks = (long long)sms * per_sm;
-  if (needed < blocks) blocks = needed;
-  kernel<<<(unsigned)blocks, kPass2Threads, smem, (cudaStream_t)stream>>>(
+template <typename T, int P>
+void launch_pass2_obs(unsigned blocks, cudaStream_t stream, const void* jc,
+                      const void* ji, const void* jp, long long jc_sf,
+                      long long jc_sm, long long ji_sf, long long ji_sm,
+                      long long jp_sf, long long jp_sm, const int* obs_pt,
+                      const float* u, const float* zp, float* y,
+                      float* g_part, long long M) {
+  schur_pass2_obs_kernel<T, P><<<blocks, kPass2ObsThreads, 0, stream>>>(
       (const T*)jc, (const T*)ji, (const T*)jp, jc_sf, jc_sm, ji_sf, ji_sm,
-      jp_sf, jp_sm, obs_cam, obs_pt, u, zp, yc, yg, M, P, Nc);
-  return (int)cudaGetLastError();
+      jp_sf, jp_sm, obs_pt, u, zp, y, g_part, M);
 }
 
+// Both stages of pass 2. y_work (M, 6) and g_work (at least part_blocks
+// × 4P floats) are the workspaces; stage A runs min(part_blocks, ⌈M/256⌉)
+// blocks, so the grid, and with it the order of every sum, is fixed by
+// M and the workspace.
 template <typename T>
 int launch_pass2(const void* jc, const void* ji, const void* jp,
                  long long jc_sf, long long jc_sm, long long ji_sf,
                  long long ji_sm, long long jp_sf, long long jp_sm,
-                 const int* obs_cam, const int* obs_pt, const float* u,
-                 const float* zp, float* yc, float* yg, long long M, int P,
-                 int Nc, void* stream) {
-  if (pass2_shared_cams(Nc, P))
-    return launch_pass2_path<T, true>(jc, ji, jp, jc_sf, jc_sm, ji_sf, ji_sm,
-                                      jp_sf, jp_sm, obs_cam, obs_pt, u, zp,
-                                      yc, yg, M, P, Nc, stream);
-  return launch_pass2_path<T, false>(jc, ji, jp, jc_sf, jc_sm, ji_sf, ji_sm,
-                                     jp_sf, jp_sm, obs_cam, obs_pt, u, zp, yc,
-                                     yg, M, P, Nc, stream);
+                 const int* obs_pt, const float* u, const float* zp,
+                 const int* cam_order, const int* cam_start, float* y_work,
+                 float* g_work, float* yc, float* yg, long long M, int P,
+                 int Nc, int part_blocks, void* stream) {
+  if (P < 1 || P > kMaxP || part_blocks < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long long needed = (M + kPass2ObsThreads - 1) / kPass2ObsThreads;
+  const unsigned blocks =
+      (unsigned)(needed < part_blocks ? needed : part_blocks);
+#define PASS2_OBS(PP)                                                       \
+  case PP:                                                                  \
+    launch_pass2_obs<T, PP>(blocks, s, jc, ji, jp, jc_sf, jc_sm, ji_sf,     \
+                            ji_sm, jp_sf, jp_sm, obs_pt, u, zp, y_work,     \
+                            g_work, M);                                     \
+    break;
+  switch (P) {
+    PASS2_OBS(1) PASS2_OBS(2) PASS2_OBS(3) PASS2_OBS(4) PASS2_OBS(5)
+    PASS2_OBS(6) PASS2_OBS(7) PASS2_OBS(8) PASS2_OBS(9) PASS2_OBS(10)
+  }
+#undef PASS2_OBS
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // warps per camera: enough that a lane sums about 4 rows on average
+  int W = 1;
+  while (W < kPass2CamWarps && 32LL * 4 * W * Nc < M) W *= 2;
+  const int cams_per_block = kPass2CamWarps / W;
+  const unsigned cam_blocks = (Nc + cams_per_block - 1) / cams_per_block + 1;
+  schur_pass2_cam_kernel<<<cam_blocks, kPass2CamWarps * 32, 0, s>>>(
+      y_work, cam_order, cam_start, g_work, (int)blocks, 4 * P, yc, yg, Nc,
+      W);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -359,29 +408,28 @@ int schur_pass1_bf16(const void* jc, const void* ji, const void* jp,
 int schur_pass2_f32(const void* jc, const void* ji, const void* jp,
                     long long jc_sf, long long jc_sm, long long ji_sf,
                     long long ji_sm, long long jp_sf, long long jp_sm,
-                    const int* obs_cam, const int* obs_pt, const float* u,
-                    const float* zp, float* yc, float* yg, long long M, int P,
-                    int Nc, void* stream) {
+                    const int* obs_pt, const float* u, const float* zp,
+                    const int* cam_order, const int* cam_start, float* y_work,
+                    float* g_work, float* yc, float* yg, long long M, int P,
+                    int Nc, int part_blocks, void* stream) {
   return launch_pass2<float>(jc, ji, jp, jc_sf, jc_sm, ji_sf, ji_sm, jp_sf,
-                             jp_sm, obs_cam, obs_pt, u, zp, yc, yg, M, P, Nc,
+                             jp_sm, obs_pt, u, zp, cam_order, cam_start,
+                             y_work, g_work, yc, yg, M, P, Nc, part_blocks,
                              stream);
 }
 
 int schur_pass2_bf16(const void* jc, const void* ji, const void* jp,
                      long long jc_sf, long long jc_sm, long long ji_sf,
                      long long ji_sm, long long jp_sf, long long jp_sm,
-                     const int* obs_cam, const int* obs_pt, const float* u,
-                     const float* zp, float* yc, float* yg, long long M, int P,
-                     int Nc, void* stream) {
-  return launch_pass2<__nv_bfloat16>(jc, ji, jp, jc_sf, jc_sm, ji_sf, ji_sm,
-                                     jp_sf, jp_sm, obs_cam, obs_pt, u, zp, yc,
-                                     yg, M, P, Nc, stream);
-}
-
-// 1 when pass 2 keeps the (Nc, 6) camera partial in shared memory on the
-// current device, 0 when it adds straight into global memory.
-int schur_pass2_shared_cams(int Nc, int P) {
-  return pass2_shared_cams(Nc, P) ? 1 : 0;
+                     const int* obs_pt, const float* u, const float* zp,
+                     const int* cam_order, const int* cam_start,
+                     float* y_work, float* g_work, float* yc, float* yg,
+                     long long M, int P, int Nc, int part_blocks,
+                     void* stream) {
+  return launch_pass2<__nv_bfloat16>(
+      jc, ji, jp, jc_sf, jc_sm, ji_sf, ji_sm, jp_sf, jp_sm, obs_pt, u, zp,
+      cam_order, cam_start, y_work, g_work, yc, yg, M, P, Nc, part_blocks,
+      stream);
 }
 
 }  // extern "C"

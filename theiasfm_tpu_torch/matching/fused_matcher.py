@@ -16,8 +16,9 @@ key index wins, and second is the second smallest value of the multiset
 
 `top2` dispatches on the device of its tensors: on the CPU it runs the
 plain PyTorch version `top2_plain` (the CPU tests use it); on a CUDA
-tensor it launches the hand-written kernel of csrc/top2_match.cu, which
-replaces both Pallas kernels (`_match_kernel` and
+tensor it launches the hand-written kernel of csrc/top2_match.cu (split
+TF32 on the tensor cores: three TF32 products per float32 dot product),
+which replaces both Pallas kernels (`_match_kernel` and
 `_match_kernel_batched`), or raises. There is no fallback from one to
 the other. Each CUDA launch adds one to the count "top2_match" in
 utils/dispatch.py.

@@ -361,6 +361,7 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
     # the dense solver's observation pairs: fixed by pt_idx_map, so found
     # once per solve
     obs_pairs = _point_obs_pairs(prob) if dense else None
+    cam_index = None
     if use_kernels and M:
         # the kernels trust their indices: check them once per solve
         lo = torch.stack([obs_cam.min(), obs_pt.min()])
@@ -368,6 +369,8 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
         (cmin, pmin), (cmax, pmax) = lo.tolist(), hi.tolist()
         if min(cmin, pmin) < 0 or cmax >= Nc or pmax >= Np:
             raise ValueError("observation indices out of range")
+        # pass 2's camera order, fixed by obs_cam: once per solve
+        cam_index = fm.camera_index(obs_cam, Nc)
 
     def build_system(extr, intr, pts, r0):
         """Weighted residuals and jacobians at (extr, intr, pts); r0 are
@@ -478,7 +481,7 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
                                  vc.contiguous(), vg[0].contiguous(), Np)
                 zp = _mat3vec(Hpp_inv, wp)
                 yc, yg2 = fm.pass2(jc_k, ji_k, jp_k, obs_cam, obs_pt, u,
-                                   zp, Nc)
+                                   zp, Nc, cam_index)
                 g2 = yg2.reshape(2, P, 2)
                 yg = (g2[0, :, 0] + g2[1, :, 1])[None]
                 return yc + diag_c * vc, yg + diag_g * vg

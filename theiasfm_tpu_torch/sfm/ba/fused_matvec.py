@@ -8,7 +8,11 @@ small torch step between them (bundle_adjustment.solve_normal_eqs):
 
     u, wp  = pass1(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts)
     zp     = Hpp^-1 wp                           (torch glue)
-    yc, yg = pass2(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams)
+    yc, yg = pass2(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams, cam_index)
+
+cam_index = camera_index(obs_cam, n_cams) is pass 2's camera index (the
+observations in camera order, each camera's segment and, on CUDA, stage
+A's (M, 6) workspace), built once per solve; pass 2 on CUDA requires it.
 
 The jacobians come as any strided (F, M) view: a (12, M) tensor (the
 transposed layout, `pallas_transposed=True`) or the `.T` of an (M, 12)
@@ -30,6 +34,9 @@ JAX package, because the problem preparation attaches the plan and
 the solver decides kernel eligibility from it.
 """
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -139,6 +146,59 @@ def pass2_plain(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams):
     return yc, yg
 
 
+MAX_P = 10          # intrinsics groups the kernels take
+
+
+@functools.cache
+def _part_blocks(device_index):
+    """Pass 2's stage-A grid cap on this device, read once per device: 16
+    blocks of 256 threads per SM (on the H100 a few observations per
+    thread at Notre-Dame; fewer, longer-lived blocks measured slower)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return 16 * sms
+
+
+class CameraIndex(NamedTuple):
+    """Pass 2's camera index, fixed by obs_cam (see camera_index)."""
+    order: torch.Tensor             # (M,) int32
+    start: torch.Tensor             # (n_cams + 1,) int32
+    y_work: Optional[torch.Tensor]  # (M, 6) f32 on CUDA, else None
+    g_work: Optional[torch.Tensor]  # (blocks, 4 MAX_P) f32 on CUDA
+
+
+def camera_index(obs_cam, n_cams):
+    """Pass 2's camera index: cam_order, the observations sorted by
+    camera, stably, so each camera keeps point order; cam_start, where
+    each camera's segment of cam_order starts (cam_start[-1] = M). On a
+    CUDA device it also holds the kernel's workspaces: y_work, the (M, 6)
+    rows that stage A writes and stage B reads, and g_work, stage A's
+    group partials, one row per block of its grid (the device's cap).
+    Every pass 2 given this index reuses them, so calls that share it run
+    on one stream. On obs_cam's device."""
+    dev = obs_cam.device
+    order = torch.sort(obs_cam, stable=True).indices.to(torch.int32)
+    counts = torch.bincount(obs_cam.long(), minlength=n_cams)
+    start = torch.zeros(n_cams + 1, dtype=torch.int32, device=dev)
+    start[1:] = torch.cumsum(counts, 0)
+    if dev.type != "cuda":
+        return CameraIndex(order, start, None, None)
+    parts = _part_blocks(dev.index if dev.index is not None
+                         else torch.cuda.current_device())
+    f32 = torch.float32
+    return CameraIndex(
+        order, start,
+        torch.empty((obs_cam.shape[0], 6), dtype=f32, device=dev),
+        torch.empty((parts, 4 * MAX_P), dtype=f32, device=dev))
+
+
+def camera_sums_plain(y, cam_index):
+    """Plain version of pass 2's stage B: the (M, F) rows of y summed per
+    camera over the segments of cam_index, (n_cams, F)."""
+    lengths = (cam_index.start[1:] - cam_index.start[:-1]).long()
+    return torch.segment_reduce(y[cam_index.order.long()], "sum",
+                                lengths=lengths, unsafe=True)
+
+
 # ---------------------------------------------------------------------------
 # wrappers
 
@@ -158,8 +218,8 @@ def _check_jacobians(jc, ji, jp):
         raise TypeError("jacobians must share one type, float32 or "
                         f"bfloat16: {jc.dtype}, {ji.dtype}, {jp.dtype}")
     P = ji.shape[0] // 2
-    if not 1 <= P <= 10:
-        raise ValueError(f"P={P} outside 1..10")
+    if not 1 <= P <= MAX_P:
+        raise ValueError(f"P={P} outside 1..{MAX_P}")
     return M, P
 
 
@@ -199,7 +259,8 @@ def pass1(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts):
     _check_vec("obs_pt", obs_pt, (M,), torch.int32)
     _check_vec("vc", vc, (Nc, 6), torch.float32)
     _check_vec("vg", vg, (P,), torch.float32)
-    u = torch.zeros((2, M), dtype=torch.float32, device=jc.device)
+    # the kernel writes u whole and adds into wp
+    u = torch.empty((2, M), dtype=torch.float32, device=jc.device)
     wp = torch.zeros((n_pts, 3), dtype=torch.float32, device=jc.device)
     if M == 0:
         return u, wp
@@ -215,40 +276,47 @@ def pass1(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts):
     return u, wp
 
 
-def pass2(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams):
+def pass2(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams, cam_index=None):
     """Second sweep of S·v. Returns (yc (n_cams, 6) f32, yg (2P, 2)
-    f32)."""
+    f32). cam_index: camera_index(obs_cam, n_cams), required on CUDA,
+    where it replaces obs_cam (a solve builds it once); the CPU path
+    ignores it."""
     if jc.device.type == "cpu":
         return pass2_plain(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams)
     M, P = _check_jacobians(jc, ji, jp)
-    _check_cuda(jc, ji, jp, obs_cam, obs_pt, u, zp)
-    _check_vec("obs_cam", obs_cam, (M,), torch.int32)
+    _check_cuda(jc, ji, jp, obs_pt, u, zp)
+    if not isinstance(cam_index, CameraIndex) or cam_index.y_work is None:
+        raise ValueError("pass2 on CUDA takes cam_index=camera_index("
+                         "obs_cam, n_cams) on the card, built once per "
+                         "solve")
+    order, start, y_work, g_work = cam_index
+    _check_cuda(jc, order, start, y_work, g_work)
+    if order.shape != (M,) or start.shape != (n_cams + 1,):
+        raise ValueError(f"cam_index is for {order.shape[0]} observations "
+                         f"and {start.shape[0] - 1} cameras, not {M} and "
+                         f"{n_cams}")
     _check_vec("obs_pt", obs_pt, (M,), torch.int32)
     _check_vec("u", u, (2, M), torch.float32)
     _check_vec("zp", zp, (zp.shape[0], 3), torch.float32)
-    yc = torch.zeros((n_cams, 6), dtype=torch.float32, device=jc.device)
-    yg = torch.zeros((2 * P, 2), dtype=torch.float32, device=jc.device)
+    dev = jc.device
     if M == 0:
-        return yc, yg
+        return (torch.zeros((n_cams, 6), dtype=torch.float32, device=dev),
+                torch.zeros((2 * P, 2), dtype=torch.float32, device=dev))
+    # stage B writes yc and yg whole; the workspaces come with the index
+    yc = torch.empty((n_cams, 6), dtype=torch.float32, device=dev)
+    yg = torch.empty((2 * P, 2), dtype=torch.float32, device=dev)
     from ... import _kernels
     name = f"schur_pass2_{_SUFFIX[jc.dtype]}"
     fn = getattr(_kernels.library(), name)
     err = fn(jc.data_ptr(), ji.data_ptr(), jp.data_ptr(),
-             *_strides(jc, ji, jp), obs_cam.data_ptr(), obs_pt.data_ptr(),
-             u.data_ptr(), zp.data_ptr(), yc.data_ptr(), yg.data_ptr(),
-             M, P, n_cams, torch.cuda.current_stream(jc.device).cuda_stream)
+             *_strides(jc, ji, jp), obs_pt.data_ptr(), u.data_ptr(),
+             zp.data_ptr(), order.data_ptr(), start.data_ptr(),
+             y_work.data_ptr(), g_work.data_ptr(), yc.data_ptr(),
+             yg.data_ptr(), M, P, n_cams, g_work.shape[0],
+             torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
     count_dispatch("schur_pass2")
     return yc, yg
-
-
-def pass2_camera_path(n_cams: int, P: int = 1) -> str:
-    """Which camera reduction pass 2 uses on the current CUDA device for
-    this many cameras: "shared" (per-block shared-memory partials) or
-    "global" (atomics straight into device memory)."""
-    from ... import _kernels
-    lib = _kernels.library()
-    return "shared" if lib.schur_pass2_shared_cams(n_cams, P) else "global"
 
 
 # ---------------------------------------------------------------------------
@@ -323,7 +391,8 @@ def blocks(jc, ji, jp, r, obs_cam, obs_pt, n_cams, n_pts):
 
 def blocks_camera_path(n_cams: int, P: int = 1) -> str:
     """Which camera reduction ba_blocks uses on the current CUDA device for
-    this many cameras: "shared" or "global" (see pass2_camera_path)."""
+    this many cameras: "shared" (per-block shared-memory partials) or
+    "global" (atomics straight into device memory)."""
     from ... import _kernels
     flag = _kernels.library("ba_blocks").ba_blocks_shared_cams(n_cams, P)
     _raise_on(-flag if flag < 0 else 0, "ba_blocks_shared_cams")
