@@ -77,16 +77,16 @@ REPLACES = {("schur_pass1", "t"): f"{PALLAS}:259",
             ("schur_pass2", "t"): f"{PALLAS}:333",
             ("schur_pass1", "row"): f"{PALLAS}:147",
             ("schur_pass2", "row"): f"{PALLAS}:203"}
-# max |kernel - plain| <= TOL * max|plain|: atomics (pass 1) and the
-# camera segments (pass 2) reorder the f32 sums; under bf16 a rounded
-# intermediate (d = u - Jp·zp) may land one bf16 ulp apart when the two
-# sum Jp·zp in another order
+# max |kernel - plain| <= TOL * max|plain|: the point segments (pass 1)
+# and the camera segments (pass 2) reorder the f32 sums; under bf16 a
+# rounded intermediate (d = u - Jp·zp) may land one bf16 ulp apart when
+# the two sum Jp·zp in another order
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 # kernel shapes: (name, cameras, points, observations per point)
 SHAPES = [("notre_dame", 550, 140_000, 4),
           ("nc1300", 1300, 140_000, 4),
           ("trafalgar", 5288, 1_250_000, 4),
-          ("global_atomics", 12_000, 140_000, 4)]
+          ("nc12000", 12_000, 140_000, 4)]
 # the pcg_fast_pt options of scripts/bench_probe.py:100-127,219-220
 FAST_PT = BAOptions(max_iterations=10, loss="huber", loss_scale=2.0,
                     function_tolerance=0.0, point_indices_sorted=True,
@@ -223,7 +223,9 @@ def phase_kernels(timer):
         vc = torch.randn(Nc, 6, device="cuda")
         vg = torch.randn(P, device="cuda")
         zp = torch.randn(Np, 3, device="cuda")
-        # pass 2's camera index, built once per solve in bundle_adjust
+        # the point and camera indices, built once per solve in
+        # bundle_adjust
+        pt_index = fm.point_index(ids[1], Np)
         cam_index = fm.camera_index(ids[0], Nc)
         for dtype in (torch.float32, torch.bfloat16):
             for layout in ("t", "row"):
@@ -234,10 +236,13 @@ def phase_kernels(timer):
                     js = [j.T.contiguous().to(dtype).T for j in jac32]
                 u_ref, wp_ref = fm.pass1_plain(*js, *ids, vc, vg, Np)
                 yc_ref, yg_ref = fm.pass2_plain(*js, *ids, u_ref, zp, Nc)
-                u, wp = fm.pass1(*js, *ids, vc, vg, Np)
+                u, wp = fm.pass1(*js, *ids, vc, vg, Np, pt_index)
+                u2, wp2 = fm.pass1(*js, *ids, vc, vg, Np, pt_index)
                 yc, yg = fm.pass2(*js, *ids, u_ref, zp, Nc, cam_index)
                 yc2, yg2 = fm.pass2(*js, *ids, u_ref, zp, Nc, cam_index)
                 torch.cuda.synchronize()
+                check(torch.equal(u, u2) and torch.equal(wp, wp2),
+                      f"{shape} {dtype} {layout}: pass 1 not repeatable")
                 check(torch.equal(yc, yc2) and torch.equal(yg, yg2),
                       f"{shape} {dtype} {layout}: pass 2 not repeatable")
                 errs = {}
@@ -253,7 +258,7 @@ def phase_kernels(timer):
                           f"{err} > {TOL[dtype]} * {scale}")
                 calls = {
                     "schur_pass1": (
-                        lambda: fm.pass1(*js, *ids, vc, vg, Np),
+                        lambda: fm.pass1(*js, *ids, vc, vg, Np, pt_index),
                         lambda: fm.pass1_plain(*js, *ids, vc, vg, Np),
                         ("u", "wp")),
                     "schur_pass2": (
@@ -282,6 +287,7 @@ def phase_kernels(timer):
                     emit("kernels", **rec)
                     results[(name, shape, rec["dtype"], layout)] = rec
         del jac32, ids, vc, zp, u_ref, wp_ref, yc_ref, yg_ref, cam_index
+        del pt_index
         torch.cuda.empty_cache()
     return results
 
@@ -308,9 +314,11 @@ def _bench_jacobians(n_cams, n_pts, opp):
 
 def phase_blocks_kernel(timer):
     """ba_blocks against blocks_plain on the bench problem's jacobians at
-    every shape: max |kernel - plain| <= 1e-4 max |plain| per output
-    (atomics reorder the f32 sums); median ms of the kernel (L2 flushed
-    before each call, and back to back) and of the plain version."""
+    every shape, with the camera and point indices built as bundle_adjust
+    builds them: max |kernel - plain| <= 1e-4 max |plain| per output (the
+    segments reorder the f32 sums), two launches give the same bits;
+    median ms of the kernel (L2 flushed before each call, and back to
+    back) and of the plain version."""
     results = {}
     P = 1
     for shape, Nc, Np, opp in SHAPES:
@@ -319,9 +327,14 @@ def phase_blocks_kernel(timer):
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
         M = js[0].shape[0]
+        index = dict(cam_index=fm.camera_index(ids[0], Nc),
+                     pt_index=fm.point_index(ids[1], Np))
         ref = fm.blocks_plain(*js, *ids, Nc, Np)
-        got = fm.blocks(*js, *ids, Nc, Np)
+        got = fm.blocks(*js, *ids, Nc, Np, **index)
+        again = fm.blocks(*js, *ids, Nc, Np, **index)
         torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"{shape}: ba_blocks not repeatable")
         errs = []
         for key, g, f in zip(("pt", "cam", "X", "Y"), got, ref):
             check(bool(torch.isfinite(g).all()), f"{shape}: {key} not finite")
@@ -339,19 +352,19 @@ def phase_blocks_kernel(timer):
         t_ops = ops / F32_OPS_PER_S * 1e3
         rec = dict(
             kernel="ba_blocks", shape=shape, M=M, Nc=Nc, Np=Np, P=P,
-            setup_s=setup_s, camera_path=fm.blocks_camera_path(Nc, P),
+            setup_s=setup_s,
             max_abs_err=max(e for e, _ in errs),
             rel_err=max(e / max(sc, 1e-30) for e, sc in errs),
             tol_rel=1e-4,
-            ms=timer.ms(lambda: fm.blocks(*js, *ids, Nc, Np)),
-            ms_back_to_back=timer.ms(lambda: fm.blocks(*js, *ids, Nc, Np),
-                                     cold=False),
+            ms=timer.ms(lambda: fm.blocks(*js, *ids, Nc, Np, **index)),
+            ms_back_to_back=timer.ms(
+                lambda: fm.blocks(*js, *ids, Nc, Np, **index), cold=False),
             plain_ms=timer.ms(lambda: fm.blocks_plain(*js, *ids, Nc, Np)),
             bytes=nbytes, ops=ops, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations")
         emit("blocks_kernel", **rec)
         results[shape] = rec
-        del js, ids, ref, got
+        del js, ids, ref, got, again, index
         torch.cuda.empty_cache()
     return results
 

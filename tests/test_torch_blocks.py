@@ -110,3 +110,26 @@ def test_blocks_wrapper_on_other_device_raises():
     ids = torch.zeros(M, dtype=torch.int32, device="meta")
     with pytest.raises(RuntimeError):
         fm.blocks(*j, ids, ids, 3, 4)
+
+
+@pytest.mark.parametrize("sorted_pts", [True, False],
+                         ids=["sorted", "unsorted"])
+def test_blocks_on_cpu_ignores_indices(sorted_pts):
+    """On the CPU blocks runs its plain version: given the camera and
+    point indices (which the CUDA kernel requires) or not, the same
+    bits."""
+    rng = np.random.default_rng(6)
+    M, Nc, Np, P = 300, 7, 40, 3
+    obs_cam = torch.tensor(rng.integers(0, Nc, M), dtype=torch.int32)
+    obs_pt = np.sort(rng.integers(0, Np, M))
+    if not sorted_pts:
+        obs_pt = rng.permutation(obs_pt)
+    obs_pt = torch.tensor(obs_pt, dtype=torch.int32)
+    js = [torch.tensor(rng.normal(size=(M, F)), dtype=torch.float32)
+          for F in (12, 2 * P, 6, 2)]
+    got = fm.blocks(*js, obs_cam, obs_pt, Nc, Np,
+                    cam_index=fm.camera_index(obs_cam, Nc),
+                    pt_index=fm.point_index(obs_pt, Np))
+    ref = fm.blocks(*js, obs_cam, obs_pt, Nc, Np)
+    for g, f in zip(got, ref):
+        assert torch.equal(g, f)

@@ -242,8 +242,8 @@ def test_bundle_adjust_reconstruction_matches_jax(extra, monkeypatch):
     from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
     calls = []
     blocks = fm.blocks
-    monkeypatch.setattr(fm, "blocks", lambda *a: calls.append(
-        a[0].shape) or blocks(*a))
+    monkeypatch.setattr(fm, "blocks", lambda *a, **k: calls.append(
+        a[0].shape) or blocks(*a, **k))
     base = dict(max_iterations=10, loss="huber", loss_scale=2.0,
                 function_tolerance=0.0, cg_iterations=60, **extra)
     sj = jep.bundle_adjust_reconstruction(rj, JOptions(**base))

@@ -198,3 +198,54 @@ def test_camera_index_segments_match_index_add(Nc):
     got = fm.camera_sums_plain(y, cam_index)
     assert got.shape == (Nc, 6)
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sorted_pts", [True, False],
+                         ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("Np", [1, 9, 300])
+def test_point_index_segments_match_index_add(Np, sorted_pts):
+    """The point index of pass 1 and ba_blocks: start is the bincount's
+    running sum (points without observations give empty segments), order
+    a stable argsort of obs_pt, or None when obs_pt is sorted (the
+    solver's case), and the plain segmented sum over it equals
+    index_add_ to float32 rounding."""
+    rng = np.random.default_rng(12)
+    M = 1000
+    obs_pt = np.sort(rng.integers(0, Np, M)).astype(np.int32)
+    if Np > 3:
+        obs_pt[obs_pt == 3] = 2            # point 3 has no observation
+    if not sorted_pts:
+        obs_pt = rng.permutation(obs_pt)
+    pt_index = fm.point_index(torch.tensor(obs_pt), Np)
+    order, start = pt_index
+    assert start.dtype == torch.int32
+    assert start.numpy().tolist() == [0] + np.cumsum(
+        np.bincount(obs_pt, minlength=Np)).tolist()
+    if sorted_pts or Np == 1:
+        assert order is None
+    else:
+        assert order.dtype == torch.int32
+        assert (order.numpy() == np.argsort(obs_pt, kind="stable")).all()
+    y = torch.tensor(rng.normal(size=(M, 12)), dtype=torch.float32)
+    ref = torch.zeros((Np, 12)).index_add_(0, torch.tensor(obs_pt).long(), y)
+    got = fm.point_sums_plain(y, pt_index)
+    assert got.shape == (Np, 12)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("sorted_pts", [True, False],
+                         ids=["sorted", "unsorted"])
+def test_pass1_on_cpu_ignores_point_index(sorted_pts):
+    """On the CPU pass 1 runs its plain version: given the point index
+    (which the CUDA kernel requires) or not, the same bits."""
+    rng = np.random.default_rng(5)
+    M, Nc, Np, P = 400, 9, 60, 2
+    obs_cam, obs_pt, Jc, Ji, Jp, vc, vg, _ = _rand_problem(rng, M, Nc, Np, P)
+    if not sorted_pts:
+        obs_pt = rng.permutation(obs_pt)
+    js = [torch.tensor(x.T.copy()) for x in (Jc, Ji, Jp)]
+    ids = torch.tensor(obs_cam), torch.tensor(obs_pt)
+    args = (*js, *ids, torch.tensor(vc), torch.tensor(vg), Np)
+    u, wp = fm.pass1(*args)
+    u_i, wp_i = fm.pass1(*args, fm.point_index(ids[1], Np))
+    assert torch.equal(u, u_i) and torch.equal(wp, wp_i)

@@ -44,12 +44,11 @@ def _inputs(rng, M, Nc, Np, P, sorted_pts, dtype):
 @pytest.mark.parametrize("Nc", [40, 1300, 12000],
                          ids=["nc40", "nc1300", "nc12000"])
 def test_kernels_match_plain_on_card(bf16, sorted_pts, Nc):
-    """Both layouts; unsorted point ids exercise pass 1's warp run
-    detection; pass 2 takes one path at every camera count (12,000 was
-    the global-atomics case of the earlier design). Tolerance relative to
-    max|ref|: pass 1's atomics and pass 2's segment order reorder the f32
-    sums, and under bf16 a rounded intermediate may land one bf16 ulp
-    apart."""
+    """Both layouts; unsorted point ids take pass 1 through the point
+    order (one value per load); pass 2 takes one path at every camera
+    count. Tolerance relative to max|ref|: the point and camera segments
+    reorder the f32 sums, and under bf16 a rounded intermediate may land
+    one bf16 ulp apart."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     M, Np, P = 3000, 500, 2
@@ -57,9 +56,11 @@ def test_kernels_match_plain_on_card(bf16, sorted_pts, Nc):
                 torch.bfloat16 if bf16 else torch.float32)
     tol = 1e-2 if bf16 else 1e-4
     cam_index = fm.camera_index(x["ids"][0], Nc)
+    pt_index = fm.point_index(x["ids"][1], Np)
+    assert (pt_index.order is None) == sorted_pts
     for js in (x["js_t"], x["js_row"]):
         reset_dispatch_counts()
-        u, wp = fm.pass1(*js, *x["ids"], x["vc"], x["vg"], Np)
+        u, wp = fm.pass1(*js, *x["ids"], x["vc"], x["vg"], Np, pt_index)
         u_ref, wp_ref = fm.pass1_plain(*js, *x["ids"], x["vc"], x["vg"], Np)
         yc, yg = fm.pass2(*js, *x["ids"], u_ref, x["zp"], Nc, cam_index)
         yc_ref, yg_ref = fm.pass2_plain(*js, *x["ids"], u_ref, x["zp"], Nc)
@@ -94,6 +95,28 @@ def test_pass2_bitwise_repeatable_on_card(bf16):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_pass1_bitwise_repeatable_on_card(bf16):
+    """pass 1 takes no atomics: two launches on the same inputs give the
+    same bits, in both layouts, with the point index built once and built
+    anew; and with a ragged last tile (M not a multiple of 1024)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Nc, Np, P = 200_004, 550, 50_000, 1
+    x = _inputs(np.random.default_rng(7), M, Nc, Np, P, True,
+                torch.bfloat16 if bf16 else torch.float32)
+    args = (*x["ids"], x["vc"], x["vg"], Np)
+    pt_index = fm.point_index(x["ids"][1], Np)
+    for js in (x["js_t"], x["js_row"]):
+        a = fm.pass1(*js, *args, pt_index)
+        b = fm.pass1(*js, *args, pt_index)
+        c = fm.pass1(*js, *args, fm.point_index(x["ids"][1], Np))
+        torch.cuda.synchronize()
+        for p, q, r in zip(a, b, c):
+            assert torch.equal(p, q) and torch.equal(p, r)
+
+
+@pytest.mark.cuda
 def test_wrapper_rejects_bad_inputs_on_card():
     """The CUDA wrappers raise on what the kernels do not take."""
     if not torch.cuda.is_available():
@@ -107,6 +130,15 @@ def test_wrapper_rejects_bad_inputs_on_card():
         fm.pass1(js[0].half(), *js[1:], oc, op, x["vc"], x["vg"], Np)
     with pytest.raises(RuntimeError):
         fm.pass1(*js, oc, op, x["vc"].cpu(), x["vg"], Np)
+    # pass 1 on the card needs the point index of the card's obs_pt
+    with pytest.raises(ValueError):
+        fm.pass1(*js, oc, op, x["vc"], x["vg"], Np)
+    with pytest.raises(RuntimeError):
+        fm.pass1(*js, oc, op, x["vc"], x["vg"], Np,
+                 fm.point_index(op.cpu(), Np))
+    with pytest.raises(ValueError):
+        fm.pass1(*js, oc, op, x["vc"], x["vg"], Np + 1,
+                 fm.point_index(op, Np))
     # pass 2 on the card needs the camera index of the card's obs_cam
     u, zp = x["vc"].new_zeros(2, M), x["zp"]
     with pytest.raises(ValueError):
@@ -117,31 +149,38 @@ def test_wrapper_rejects_bad_inputs_on_card():
         fm.pass2(*js, oc, op, u, zp, Nc + 1, fm.camera_index(oc, Nc))
 
 
+def _blocks_inputs(rng, M, Nc, Np, P, sorted_pts):
+    x = _inputs(rng, M, Nc, Np, P, sorted_pts, torch.float32)
+    r = torch.tensor(rng.normal(size=(M, 2)), dtype=torch.float32,
+                     device="cuda")
+    x["rows"] = [j.T.contiguous() for j in x["js_t"]] + [r]
+    x["views"] = [j.T for j in x["js_t"]] + [r.T.contiguous().T]
+    oc, op = x["ids"]
+    x["index"] = dict(cam_index=fm.camera_index(oc, Nc),
+                      pt_index=fm.point_index(op, Np))
+    return x
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("P", [1, 3])
 @pytest.mark.parametrize("sorted_pts", [True, False],
                          ids=["sorted", "unsorted"])
 @pytest.mark.parametrize("Nc", [40, 1300, 12000],
-                         ids=["shared", "shared_1300", "global"])
+                         ids=["nc40", "nc1300", "nc12000"])
 def test_ba_blocks_matches_plain_on_card(P, sorted_pts, Nc):
-    """ba_blocks against blocks_plain: (M, F) tensors and strided .T
-    views of (F, M) ones; unsorted point ids exercise the warp run
-    detection, Nc=12000 the global-atomics camera path. Tolerance 1e-4 of
-    max|ref| per output: atomics reorder the f32 sums."""
+    """ba_blocks against blocks_plain: (M, F) tensors (aligned row loads)
+    and strided .T views of (F, M) ones (one value per load); unsorted
+    point ids take the point sweep through the point order. One path at
+    every camera count (12,000 was the global-atomics case of the earlier
+    design). Tolerance 1e-4 of max|ref| per output: the segments reorder
+    the f32 sums."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    path = fm.blocks_camera_path(Nc, P)
-    assert path == ("global" if Nc == 12000 else "shared")
     M, Np = 5000, 700
-    rng = np.random.default_rng(3)
-    x = _inputs(rng, M, Nc, Np, P, sorted_pts, torch.float32)
-    r = torch.tensor(rng.normal(size=(M, 2)), dtype=torch.float32,
-                     device="cuda")
-    rows = [j.T.contiguous() for j in x["js_t"]] + [r]
-    views = [j.T for j in x["js_t"]] + [r.T.contiguous().T]
-    for js in (rows, views):
+    x = _blocks_inputs(np.random.default_rng(3), M, Nc, Np, P, sorted_pts)
+    for js in (x["rows"], x["views"]):
         reset_dispatch_counts()
-        got = fm.blocks(*js, *x["ids"], Nc, Np)
+        got = fm.blocks(*js, *x["ids"], Nc, Np, **x["index"])
         ref = fm.blocks_plain(*js, *x["ids"], Nc, Np)
         torch.cuda.synchronize()
         assert dispatch_counts() == {"ba_blocks": 1}
@@ -152,12 +191,46 @@ def test_ba_blocks_matches_plain_on_card(P, sorted_pts, Nc):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("Nc", [40, 1300, 12000],
+                         ids=["nc40", "nc1300", "nc12000"])
+def test_ba_blocks_bitwise_repeatable_on_card(P, Nc):
+    """ba_blocks takes no atomics: two launches on the same inputs give
+    the same bits, for rows and views, with the indices built once and
+    built anew."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Np = 60_000, 15_000
+    x = _blocks_inputs(np.random.default_rng(8), M, Nc, Np, P, True)
+    oc, op = x["ids"]
+    for js in (x["rows"], x["views"]):
+        a = fm.blocks(*js, oc, op, Nc, Np, **x["index"])
+        b = fm.blocks(*js, oc, op, Nc, Np, **x["index"])
+        c = fm.blocks(*js, oc, op, Nc, Np,
+                      cam_index=fm.camera_index(oc, Nc),
+                      pt_index=fm.point_index(op, Np))
+        torch.cuda.synchronize()
+        for p, q, r in zip(a, b, c):
+            assert torch.equal(p, q) and torch.equal(p, r)
+
+
+@pytest.mark.cuda
 def test_ba_blocks_rejects_bad_inputs_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     M = 64
     j = [torch.zeros(M, F, device="cuda") for F in (12, 2, 6, 2)]
     ids = torch.zeros(M, dtype=torch.int32, device="cuda")
+    index = dict(cam_index=fm.camera_index(ids, 3),
+                 pt_index=fm.point_index(ids, 4))
+    fm.blocks(*j, ids, ids, 3, 4, **index)
+    # the kernel needs both indices, built for these cameras and points
+    with pytest.raises(ValueError):
+        fm.blocks(*j, ids, ids, 3, 4)
+    with pytest.raises(ValueError):
+        fm.blocks(*j, ids, ids, 3, 4, cam_index=index["cam_index"])
+    with pytest.raises(ValueError):
+        fm.blocks(*j, ids, ids, 3, 5, **index)
     with pytest.raises(TypeError):
         fm.blocks(j[0].double(), *j[1:], ids, ids, 3, 4)
     with pytest.raises(ValueError):

@@ -34,14 +34,17 @@ _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _STRIDES = [_LL] * 6
 _SIGNATURES = {"ba_blocks": {
-    # jc, ji, jp, r, 8 strides, obs_cam, obs_pt, pt, cam, x, y, M, P, Nc,
-    # stream
-    "ba_blocks_f32": [_P] * 4 + [_LL] * 8 + [_P] * 6 + [_LL, _I, _I, _P],
-    "ba_blocks_shared_cams": [_I, _I],
+    # jc, ji, jp, r, 8 strides, rows, pt_order, pt_start, cam_order,
+    # cam_start, g_work, pt, cam, x, y, M, P, Np, Nc, stream
+    "ba_blocks_f32": [_P] * 4 + [_LL] * 8 + [_I] + [_P] * 9 +
+    [_LL, _I, _I, _I, _P],
 }, "schur_matvec": {
-    # jc, ji, jp, 6 strides, obs_cam, obs_pt, vc, vg, u, wp, M, P, stream
-    "schur_pass1_f32": [_P, _P, _P] + _STRIDES + [_P] * 6 + [_LL, _I, _P],
-    "schur_pass1_bf16": [_P, _P, _P] + _STRIDES + [_P] * 6 + [_LL, _I, _P],
+    # jc, ji, jp, 6 strides, layout, obs_cam, pt_order, pt_start, vc, vg,
+    # u, wp, M, P, Np, stream
+    "schur_pass1_f32": [_P, _P, _P] + _STRIDES + [_I] + [_P] * 7 +
+    [_LL, _I, _I, _P],
+    "schur_pass1_bf16": [_P, _P, _P] + _STRIDES + [_I] + [_P] * 7 +
+    [_LL, _I, _I, _P],
     # jc, ji, jp, 6 strides, obs_pt, u, zp, cam_order, cam_start, y_work,
     # g_work, yc, yg, M, P, Nc, part_blocks, stream
     "schur_pass2_f32": [_P, _P, _P] + _STRIDES + [_P] * 9 +

@@ -19,49 +19,61 @@
 // bytes, and does about 250 operations: about 2.6 operations per byte,
 // far below the H100's ~20 f32 operations per byte of device memory. At
 // 560,128 observations that is 54 MB, about 16 µs at the H100 SXM's
-// published 3.35 TB/s. The design reads each input once, coalesced along
-// the observations, and keeps the sums off device memory as far as it can:
+// published 3.35 TB/s.
 //
-// * The TPU kernel relies on the sequential TPU grid: it adds its point
-//   sums into overlapping point windows with an unguarded read-modify-
-//   write and carries the camera sums and X, Y in VMEM scratch across the
-//   grid. Blocks here run concurrently and in no order, so every sum that
-//   crosses blocks is atomic.
-// * Point side: observations are sorted by point, so each warp reduces
-//   every run of equal point ids with a segmented shuffle scan and only the
-//   run's first lane issues the twelve atomicAdds (schur_pass1's scheme).
-//   Runs are found from adjacent ids, so an unsorted order stays correct.
-//   No cumsum-and-difference: that cancels catastrophically on the
-//   monotone Hpp sums.
-// * Camera side: camera ids are random. When an (Nc, 42) f32 partial fits
-//   in the block's shared memory (Nc·168 bytes, up to about 1,370 cameras
-//   in the 227 KB opt-in limit), a grid of at most one or two 1024-thread
-//   blocks per SM accumulates with shared-memory atomics and flushes each
-//   non-zero partial with one global atomic. Above that the kernel adds
-//   straight into device memory. ba_blocks_shared_cams reports the choice.
-// * Group side (X, Y): each warp reduces its products with butterfly
-//   shuffles into a per-warp shared slot (the upper triangle of X, mirrored
-//   when stored); one atomic per value per block at the end. They are not
-//   left to a library GEMM.
+// The TPU kernel relies on the sequential TPU grid: it adds its point sums
+// into overlapping point windows with an unguarded read-modify-write and
+// carries the camera sums and X, Y in VMEM scratch across the grid. Blocks
+// here run concurrently and in no order, so every sum is taken over a
+// segment of an index built once per solve, in a fixed order, and stored
+// once. There are no atomics, two launches on the same inputs give the
+// same bits, and one code path serves every camera count. One grid
+// (ba_blocks_sweep_kernel) runs two kinds of blocks side by side:
+//
+// * Point blocks, over the point index (pt_start, each point's segment;
+//   the observations in pt_order, or in storage order when they are
+//   sorted by point, the solver's case): a block owns 256 points; its
+//   threads write the 9 point values of consecutive observations (Jpᵀ Jp's
+//   upper triangle and Jpᵀ r) into shared memory, then thread j sums point
+//   j's slots in order and stores its row of 12, the triangle mirrored. A
+//   point with hundreds of observations costs its thread shared-memory
+//   reads, not device-memory round trips: with one thread walking its
+//   point's rows in device memory the kernel took 0.16 ms on the H100 at
+//   Notre-Dame (0.07 with the tiles), whose last point holds the 128
+//   padding observations. The group products of the same observations,
+//   the upper triangle of Jiᵀ Ji and Jiᵀ r, add up in registers
+//   (templated on P); each warp reduces them by a butterfly, the block
+//   adds its warps in warp order and stores one partial row. About 40
+//   bytes per observation (Jp, r, Ji), read in point order.
+// * Camera blocks: 1-8 warps per camera (about 4 rows per lane on
+//   average) gather the camera's Jc and r rows in the order of the camera
+//   index (cam_order, cam_start) and sum the 21 upper-triangle values of
+//   Jcᵀ Jc and the 6 of Jcᵀ r, 27 sums instead of 42; then a butterfly
+//   per warp and the warps in warp order. The camera's row of 42 is stored
+//   once, the triangle mirrored. A 4-byte index and a gathered 56-byte
+//   row (some 96 bytes of 32-byte sectors) per observation.
+//
+// A second launch of one block (ba_blocks_group_kernel) sums the point
+// blocks' group partials in block order into X (mirrored) and Y.
 //
 // Everything is f32, as on the TPU (FusedBlocks forces f32): products and
-// sums in f32. Atomic sums make the summation order, and so the last f32
-// bits, vary from run to run.
+// sums in f32. Inputs are strided (M, F) views; when every row is
+// contiguous and aligned (kRows, chosen by the wrapper) they are read with
+// 16- and 8-byte loads, which measured 3-11% faster than one value per
+// load on the H100 (on the bench problem's jacobians).
 //
-// The kernel allocates nothing: the wrapper hands in zero-filled outputs
-// and the stream (PyTorch's current stream). The device attributes and the
-// launch grid are looked up once per (device, shared-memory size) and
-// cached; each entry point returns cudaGetLastError() (or the error of a
-// failed query) for the wrapper to check.
+// The kernels allocate nothing: the wrapper hands in the indices, the
+// outputs (each written whole), the group partials' workspace (one row
+// per point block) and the stream (PyTorch's current stream). The entry
+// point returns cudaGetLastError() for the wrapper to check.
 
 #include <cuda_runtime.h>
 
-#include <map>
-#include <utility>
-
 namespace {
 
-constexpr int kThreads = 1024;
+constexpr int kThreads = 256;    // points per block of the point sweep
+constexpr int kPtTile = 4 * kThreads;  // positions per tile of it
+constexpr int kCamRowsPerLane = 4;
 constexpr int kMaxP = 10;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -71,211 +83,312 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Strides are (row stride along m, column stride along f) of each input.
-// kSharedCams: accumulate the (Nc, 42) camera sums in shared memory and
-// flush once per block; otherwise add straight into global memory.
-// Dynamic shared memory: [Nc * 42 camera partials if kSharedCams]
-// [warps * G group partials], G = 4P² + 4P (X then Y).
-template <bool kSharedCams>
-__global__ void __launch_bounds__(kThreads)
-ba_blocks_kernel(const float* __restrict__ jc, const float* __restrict__ ji,
-                 const float* __restrict__ jp, const float* __restrict__ r,
-                 long long jc_sm, long long jc_sf, long long ji_sm,
-                 long long ji_sf, long long jp_sm, long long jp_sf,
-                 long long r_sm, long long r_sf,
-                 const int* __restrict__ obs_cam,
-                 const int* __restrict__ obs_pt, float* __restrict__ pt_out,
-                 float* __restrict__ cam_out, float* __restrict__ x_out,
-                 float* __restrict__ y_out, long long M, int P, int Nc) {
-  extern __shared__ float smem[];
-  const int n_cam_s = kSharedCams ? Nc * 42 : 0;
-  const int P2 = 2 * P;
-  const int GX = P2 * P2;
-  const int G = GX + 2 * P2;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n_warps = blockDim.x >> 5;
-  float* cam_s = smem;
-  float* grp_s = smem + n_cam_s;  // [warp][G]
-  for (int i = threadIdx.x; i < n_cam_s + n_warps * G; i += blockDim.x)
-    smem[i] = 0.f;
-  __syncthreads();
-  float* cam_dst = kSharedCams ? cam_s : cam_out;
+// (row, column) strides of jc, ji, jp and r
+struct Strides {
+  long long v[8];
+};
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // every lane of a warp runs the same number of iterations (the bound is
-  // rounded up to a whole warp) so the shuffles stay converged
-  const long long M_warp = (M + 31) / 32 * 32;
-  for (long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       m < M_warp; m += stride) {
-    const bool valid = m < M;
-    int pt = -1;
-    float r0 = 0.f, r1 = 0.f;
-    float p[6];
+// F values of row m of an (M, F) view with strides (sm, sf). kRows: sf is
+// 1 and each row starts aligned, so it is read in 16-byte pieces when F is
+// a multiple of 4, else in 8-byte ones.
+template <int F, bool kRows>
+__device__ __forceinline__ void load_row(const float* __restrict__ p,
+                                         long long sm, long long sf,
+                                         long long m, float* o) {
+  if (kRows) {
+    const float* q = p + m * sm;
+    if (F % 4 == 0) {
 #pragma unroll
-    for (int k = 0; k < 6; ++k) p[k] = 0.f;
-    if (valid) {
-      pt = obs_pt[m];
-      r0 = r[m * r_sm];
-      r1 = r[m * r_sm + r_sf];
+      for (int f = 0; f < F; f += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(q + f);
+        o[f] = v.x;
+        o[f + 1] = v.y;
+        o[f + 2] = v.z;
+        o[f + 3] = v.w;
+      }
+    } else {
 #pragma unroll
-      for (int k = 0; k < 6; ++k) p[k] = jp[m * jp_sm + k * jp_sf];
-      // camera side: [Jcᵀ Jc | Jcᵀ r] straight into the partial
-      float c[12];
+      for (int f = 0; f < F; f += 2) {
+        const float2 v = *reinterpret_cast<const float2*>(q + f);
+        o[f] = v.x;
+        o[f + 1] = v.y;
+      }
+    }
+  } else {
 #pragma unroll
-      for (int k = 0; k < 12; ++k) c[k] = jc[m * jc_sm + k * jc_sf];
-      float* dst = cam_dst + (long long)obs_cam[m] * 42;
+    for (int f = 0; f < F; ++f) o[f] = p[m * sm + f * sf];
+  }
+}
+
+__device__ __forceinline__ int tile_slot(int i) { return i + (i >> 5); }
+
+// (k)-th entry of the row-major upper triangle of an n x n matrix -> (a, b)
+__device__ __forceinline__ void triangle_entry(int k, int n, int* a, int* b) {
+  int i = 0;
+  while (k >= n - i) {
+    k -= n - i;
+    ++i;
+  }
+  *a = i;
+  *b = i + k;
+}
+
+// The point sweep of block b: it owns points [256b, 256b + 256), whose
+// observations are the positions [lo, hi) = [pt_start[256b],
+// pt_start[256b + 256]) of the point order. It walks them in tiles of 1024
+// positions, four per thread (adjacent lanes on adjacent positions): each
+// thread writes the 9 point values of its positions (the upper triangle
+// of Jpᵀ Jp, then Jpᵀ r) into shared memory and adds their group products
+// in registers; then thread j adds the slots of point 256b + j in
+// position order and stores the point's row of 12 once, the triangle
+// mirrored. One group partial per block: [upper triangle of X
+// (row-major) | Y (2P, 2) row-major].
+template <int P, bool kRows>
+__device__ __forceinline__ void point_sweep(
+    int b, const float* __restrict__ ji, const float* __restrict__ jp,
+    const float* __restrict__ r, const long long* st,
+    const int* __restrict__ pt_order, const int* __restrict__ pt_start,
+    float* __restrict__ pt_out, float* __restrict__ g_part, int Np) {
+  constexpr int P2 = 2 * P;
+  constexpr int GX = P2 * (P2 + 1) / 2;
+  constexpr int G = GX + 2 * P2;
+  constexpr int kWarps = kThreads / 32;
+  __shared__ float t_s[9][kPtTile + kPtTile / 32];
+  __shared__ float g_warp[kWarps][G];
+  float g[G];
+#pragma unroll
+  for (int k = 0; k < G; ++k) g[k] = 0.f;
+  const int tid = threadIdx.x;
+  const int p0 = b * kThreads;
+  const int p = p0 + tid;
+  const int lo = pt_start[p0], hi = pt_start[min(p0 + kThreads, Np)];
+  int s = 0, e = 0;
+  if (p < Np) {
+    s = pt_start[p];
+    e = pt_start[p + 1];
+  }
+  float acc[9];
+#pragma unroll
+  for (int c = 0; c < 9; ++c) acc[c] = 0.f;
+  for (int tb = lo; tb < hi; tb += kPtTile) {
+#pragma unroll
+    for (int k = 0; k < kPtTile / kThreads; ++k) {
+      const int slot = tid + kThreads * k;
+      const int i = tb + slot;
+      float t[9];
+#pragma unroll
+      for (int c = 0; c < 9; ++c) t[c] = 0.f;
+      if (i < hi) {
+        const long long m = pt_order ? pt_order[i] : i;
+        float q[6], rr[2], j[P2];
+        load_row<6, kRows>(jp, st[4], st[5], m, q);
+        load_row<2, kRows>(r, st[6], st[7], m, rr);
+        load_row<P2, kRows>(ji, st[2], st[3], m, j);
+        int n = 0;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) {
+#pragma unroll
+          for (int c = a; c < 3; ++c)
+            t[n++] = q[a] * q[c] + q[3 + a] * q[3 + c];
+        }
+#pragma unroll
+        for (int a = 0; a < 3; ++a)
+          t[6 + a] = q[a] * rr[0] + q[3 + a] * rr[1];
+        n = 0;
+#pragma unroll
+        for (int f = 0; f < P2; ++f) {
+#pragma unroll
+          for (int h = f; h < P2; ++h) g[n++] += j[f] * j[h];
+        }
+#pragma unroll
+        for (int f = 0; f < P2; ++f) {
+          g[GX + 2 * f] += j[f] * rr[0];
+          g[GX + 2 * f + 1] += j[f] * rr[1];
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < 9; ++c) t_s[c][tile_slot(slot)] = t[c];
+    }
+    __syncthreads();
+    const int a = s > tb ? s : tb;
+    const int z = e < tb + kPtTile ? e : tb + kPtTile;
+    for (int i = a; i < z; ++i) {
+      const int slot = tile_slot(i - tb);
+#pragma unroll
+      for (int c = 0; c < 9; ++c) acc[c] += t_s[c][slot];
+    }
+    __syncthreads();
+  }
+  if (p < Np) {
+    // [H00 H01 H02 H11 H12 H22 | g0 g1 g2] -> [H (3x3) | g]
+    float4* dst = reinterpret_cast<float4*>(pt_out + (long long)p * 12);
+    dst[0] = make_float4(acc[0], acc[1], acc[2], acc[1]);
+    dst[1] = make_float4(acc[3], acc[4], acc[2], acc[4]);
+    dst[2] = make_float4(acc[5], acc[6], acc[7], acc[8]);
+  }
+  const int warp = tid >> 5, lane = tid & 31;
+#pragma unroll
+  for (int k = 0; k < G; ++k) {
+    const float v = warp_sum(g[k]);
+    if (lane == 0) g_warp[warp][k] = v;
+  }
+  __syncthreads();
+  for (int k = tid; k < G; k += kThreads) {
+    float v = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) v += g_warp[w][k];
+    g_part[(long long)b * G + k] = v;
+  }
+}
+
+// The camera sweep of block b: W warps per camera sum its rows in
+// cam_order (lane l of warp w takes rows l + 32w, l + 32(w + W), ...),
+// then a butterfly per warp and the W warp sums in warp order; the
+// camera's row of 42 is stored once, the triangle mirrored.
+template <bool kRows>
+__device__ __forceinline__ void camera_sweep(
+    int b, const float* __restrict__ jc, const float* __restrict__ r,
+    const long long* st, const int* __restrict__ cam_order,
+    const int* __restrict__ cam_start, float* __restrict__ cam_out, int Nc,
+    int W) {
+  constexpr int kTri = 21;  // upper triangle of the 6x6 Jcᵀ Jc
+  __shared__ float s_warp[kThreads / 32][kTri + 6];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = warp % W;
+  const int cam = b * (kThreads / 32 / W) + warp / W;
+  float s[kTri + 6];
+#pragma unroll
+  for (int k = 0; k < kTri + 6; ++k) s[k] = 0.f;
+  if (cam < Nc) {
+    const int lo = cam_start[cam], hi = cam_start[cam + 1];
+#pragma unroll 2
+    for (int i = lo + 32 * sub + lane; i < hi; i += 32 * W) {
+      const long long m = cam_order[i];
+      float c[12], rr[2];
+      load_row<12, kRows>(jc, st[0], st[1], m, c);
+      load_row<2, kRows>(r, st[6], st[7], m, rr);
+      int k = 0;
 #pragma unroll
       for (int a = 0; a < 6; ++a) {
 #pragma unroll
-        for (int b = 0; b < 6; ++b)
-          atomicAdd(dst + 6 * a + b, c[a] * c[b] + c[6 + a] * c[6 + b]);
-        atomicAdd(dst + 36 + a, c[a] * r0 + c[6 + a] * r1);
+        for (int d = a; d < 6; ++d)
+          s[k++] += c[a] * c[d] + c[6 + a] * c[6 + d];
       }
-    }
-
-    // point side: [Jpᵀ Jp | Jpᵀ r], one sum per run of equal point ids
-    float t[12];
 #pragma unroll
-    for (int a = 0; a < 3; ++a) {
-#pragma unroll
-      for (int b = 0; b < 3; ++b)
-        t[3 * a + b] = p[a] * p[b] + p[3 + a] * p[3 + b];
-      t[9 + a] = p[a] * r0 + p[3 + a] * r1;
+      for (int a = 0; a < 6; ++a)
+        s[kTri + a] += c[a] * rr[0] + c[6 + a] * rr[1];
     }
-    // segmented suffix scan: after it each run's first lane holds the
-    // run's sum. A run is the lanes [head, next head).
-    const int prev_pt = __shfl_up_sync(kFull, pt, 1);
-    const bool head = lane == 0 || prev_pt != pt;
-    const unsigned heads = __ballot_sync(kFull, head);
-    const unsigned above = heads & ~(kFull >> (31 - lane));  // lanes > lane
-    const int run_end = above ? __ffs(above) - 1 : 32;
+  }
 #pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-#pragma unroll
-      for (int k = 0; k < 12; ++k) {
-        const float o = __shfl_down_sync(kFull, t[k], off);
-        if (lane + off < run_end) t[k] += o;
-      }
-    }
-    if (valid && head) {
-      float* w = pt_out + (long long)pt * 12;
-#pragma unroll
-      for (int k = 0; k < 12; ++k) atomicAdd(w + k, t[k]);
-    }
-
-    // group side: X = Jiᵀ Ji (upper triangle), Y = Jiᵀ r
-    float j[2 * kMaxP];
-    for (int f = 0; f < P2; ++f)
-      j[f] = valid ? ji[m * ji_sm + f * ji_sf] : 0.f;
-    float* gs = grp_s + warp * G;
-    for (int f = 0; f < P2; ++f) {
-      for (int g = f; g < P2; ++g) {
-        const float s = warp_sum(j[f] * j[g]);
-        if (lane == 0) gs[f * P2 + g] += s;
-      }
-      const float s0 = warp_sum(j[f] * r0);
-      const float s1 = warp_sum(j[f] * r1);
-      if (lane == 0) {
-        gs[GX + 2 * f] += s0;
-        gs[GX + 2 * f + 1] += s1;
-      }
-    }
+  for (int k = 0; k < kTri + 6; ++k) {
+    const float v = warp_sum(s[k]);
+    if (lane == 0) s_warp[warp][k] = v;
   }
   __syncthreads();
-  if (kSharedCams) {
-    for (int i = threadIdx.x; i < n_cam_s; i += blockDim.x) {
-      const float v = cam_s[i];
-      if (v != 0.f) atomicAdd(cam_out + i, v);
-    }
-  }
-  for (int g = threadIdx.x; g < G; g += blockDim.x) {
-    float s = 0.f;
-    for (int w = 0; w < n_warps; ++w) s += grp_s[w * G + g];
-    if (g < GX) {
-      const int f = g / P2, h = g % P2;
-      if (h < f) continue;  // the lower triangle mirrors the upper
-      atomicAdd(x_out + g, s);
-      if (h != f) atomicAdd(x_out + h * P2 + f, s);
+  if (sub == 0 && cam < Nc && lane < kTri + 6) {
+    float v = 0.f;
+    for (int w = 0; w < W; ++w) v += s_warp[warp + w][lane];
+    float* dst = cam_out + (long long)cam * 42;
+    if (lane < kTri) {
+      int a, d;
+      triangle_entry(lane, 6, &a, &d);
+      dst[6 * a + d] = v;
+      dst[6 * d + a] = v;
     } else {
-      atomicAdd(y_out + (g - GX), s);
+      dst[36 + lane - kTri] = v;
     }
   }
 }
 
-struct DeviceInfo {
-  int sms = 0;
-  int smem_optin = 0;
-};
+// Both sweeps in one grid, so that the two overlap: blocks below
+// pt_blocks sweep points, the rest cameras.
+template <int P, bool kRows>
+__global__ void __launch_bounds__(kThreads)
+ba_blocks_sweep_kernel(const float* __restrict__ jc,
+                       const float* __restrict__ ji,
+                       const float* __restrict__ jp,
+                       const float* __restrict__ r, Strides strides,
+                       const int* __restrict__ pt_order,
+                       const int* __restrict__ pt_start,
+                       const int* __restrict__ cam_order,
+                       const int* __restrict__ cam_start,
+                       float* __restrict__ pt_out, float* __restrict__ g_part,
+                       float* __restrict__ cam_out, int Np, int Nc,
+                       int pt_blocks, int W) {
+  if ((int)blockIdx.x < pt_blocks)
+    point_sweep<P, kRows>(blockIdx.x, ji, jp, r, strides.v, pt_order,
+                          pt_start, pt_out, g_part, Np);
+  else
+    camera_sweep<kRows>(blockIdx.x - pt_blocks, jc, r, strides.v, cam_order,
+                        cam_start, cam_out, Nc, W);
+}
 
-cudaError_t device_info(DeviceInfo* out) {
-  static std::map<int, DeviceInfo> cache;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  auto it = cache.find(dev);
-  if (it == cache.end()) {
-    DeviceInfo info;
-    err = cudaDeviceGetAttribute(&info.sms, cudaDevAttrMultiProcessorCount,
-                                 dev);
-    if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(
-        &info.smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return err;
-    it = cache.emplace(dev, info).first;
+// The point sweep's n_part group partials summed in block order, one warp
+// per value, into X (mirrored) and Y.
+__global__ void __launch_bounds__(kThreads)
+ba_blocks_group_kernel(const float* __restrict__ g_part, int n_part, int P,
+                       float* __restrict__ x_out, float* __restrict__ y_out) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int P2 = 2 * P, GX = P2 * (P2 + 1) / 2, G = GX + 2 * P2;
+  for (int v = warp; v < G; v += kThreads / 32) {
+    float s = 0.f;
+    for (int i = lane; i < n_part; i += 32) s += g_part[(long long)i * G + v];
+    s = warp_sum(s);
+    if (lane == 0) {
+      if (v < GX) {
+        int f, h;
+        triangle_entry(v, P2, &f, &h);
+        x_out[f * P2 + h] = s;
+        x_out[h * P2 + f] = s;
+      } else {
+        y_out[v - GX] = s;
+      }
+    }
   }
-  *out = it->second;
-  return cudaSuccess;
 }
 
-size_t group_bytes(int P) {
-  return (size_t)(kThreads / 32) * (4 * P * P + 4 * P) * sizeof(float);
+template <int P, bool kRows>
+void launch_sweep(unsigned blocks, cudaStream_t stream, const float* jc,
+                  const float* ji, const float* jp, const float* r,
+                  const Strides& st, const int* pt_order, const int* pt_start,
+                  const int* cam_order, const int* cam_start, float* pt_out,
+                  float* g_part, float* cam_out, int Np, int Nc,
+                  int pt_blocks, int W) {
+  ba_blocks_sweep_kernel<P, kRows><<<blocks, kThreads, 0, stream>>>(
+      jc, ji, jp, r, st, pt_order, pt_start, cam_order, cam_start, pt_out,
+      g_part, cam_out, Np, Nc, pt_blocks, W);
 }
 
-size_t cam_bytes(int Nc) { return (size_t)Nc * 42 * sizeof(float); }
-
-// Blocks per SM of the kernel at this shared-memory size, on the current
-// device; cudaFuncSetAttribute and the occupancy query run once per
-// (device, path, size).
-template <bool kSharedCams>
-cudaError_t blocks_per_sm(int dev, size_t smem, int* per_sm) {
-  static std::map<std::pair<int, size_t>, int> cache;
-  const auto key = std::make_pair(dev, smem);
-  auto it = cache.find(key);
-  if (it == cache.end()) {
-    auto kernel = ba_blocks_kernel<kSharedCams>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    int n = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, kThreads,
-                                                        smem);
-    if (err != cudaSuccess) return err;
-    it = cache.emplace(key, n < 1 ? 1 : n).first;
-  }
-  *per_sm = it->second;
-  return cudaSuccess;
-}
-
-template <bool kSharedCams>
+template <bool kRows>
 int launch(const float* jc, const float* ji, const float* jp, const float* r,
-           const long long* strides, const int* obs_cam, const int* obs_pt,
+           const Strides& st, const int* pt_order, const int* pt_start,
+           const int* cam_order, const int* cam_start, float* g_work,
            float* pt_out, float* cam_out, float* x_out, float* y_out,
-           long long M, int P, int Nc, int sms, void* stream) {
-  const size_t smem = (kSharedCams ? cam_bytes(Nc) : 0) + group_bytes(P);
-  int dev = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  err = blocks_per_sm<kSharedCams>(dev, smem, &per_sm);
-  if (err != cudaSuccess) return (int)err;
-  const long long needed = (M + kThreads - 1) / kThreads;
-  long long blocks = (long long)sms * per_sm;
-  if (needed < blocks) blocks = needed;
-  ba_blocks_kernel<kSharedCams><<<(unsigned)blocks, kThreads, smem,
-                                  (cudaStream_t)stream>>>(
-      jc, ji, jp, r, strides[0], strides[1], strides[2], strides[3],
-      strides[4], strides[5], strides[6], strides[7], obs_cam, obs_pt, pt_out,
-      cam_out, x_out, y_out, M, P, Nc);
+           long long M, int P, int Np, int Nc, cudaStream_t s) {
+  const int pt_blocks = (Np + kThreads - 1) / kThreads;
+  // warps per camera: enough that a lane sums about kCamRowsPerLane rows
+  int W = 1;
+  while (W < kThreads / 32 && 32LL * kCamRowsPerLane * W * Nc < M) W *= 2;
+  const int cams_per_block = kThreads / 32 / W;
+  const unsigned blocks =
+      pt_blocks + (Nc + cams_per_block - 1) / cams_per_block;
+  if (blocks > 0) {
+#define SWEEP(PP)                                                          \
+  case PP:                                                                 \
+    launch_sweep<PP, kRows>(blocks, s, jc, ji, jp, r, st, pt_order,        \
+                            pt_start, cam_order, cam_start, pt_out, g_work, \
+                            cam_out, Np, Nc, pt_blocks, W);                \
+    break;
+    switch (P) {
+      SWEEP(1) SWEEP(2) SWEEP(3) SWEEP(4) SWEEP(5)
+      SWEEP(6) SWEEP(7) SWEEP(8) SWEEP(9) SWEEP(10)
+    }
+#undef SWEEP
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  ba_blocks_group_kernel<<<1, kThreads, 0, s>>>(g_work, pt_blocks, P, x_out,
+                                                y_out);
   return (int)cudaGetLastError();
 }
 
@@ -283,38 +396,32 @@ int launch(const float* jc, const float* ji, const float* jp, const float* r,
 
 extern "C" {
 
-// 1 when the (Nc, 42) camera partial lives in shared memory on the current
-// device, 0 when the kernel adds straight into global memory, negative (a
-// cudaError) when the device query fails.
-int ba_blocks_shared_cams(int Nc, int P) {
-  DeviceInfo info;
-  const cudaError_t err = device_info(&info);
-  if (err != cudaSuccess) return -(int)err;
-  return cam_bytes(Nc) + group_bytes(P) <= (size_t)info.smem_optin ? 1 : 0;
-}
-
 // jc (M, 12), ji (M, 2P), jp (M, 6), r (M, 2): f32 with the given strides
-// (row, column) each; obs_cam, obs_pt (M,) int32. Outputs zero-filled:
-// pt_out (Np, 12), cam_out (Nc, 42), x_out (2P, 2P), y_out (2P, 2).
+// (row, column) each; rows: 1 when every input's rows are contiguous and
+// aligned for 16-byte (jc) and 8-byte (ji, jp, r) loads. The point index
+// (pt_order (M,) int32, or null when the observations are sorted by point;
+// pt_start (Np + 1,)) and the camera index (cam_order (M,), cam_start
+// (Nc + 1,)). g_work: at least ceil(Np / 256) rows of 2P(2P + 1)/2 + 4P
+// floats. Outputs, each written whole: pt_out (Np, 12), cam_out (Nc, 42),
+// x_out (2P, 2P), y_out (2P, 2).
 int ba_blocks_f32(const float* jc, const float* ji, const float* jp,
                   const float* r, long long jc_sm, long long jc_sf,
                   long long ji_sm, long long ji_sf, long long jp_sm,
-                  long long jp_sf, long long r_sm, long long r_sf,
-                  const int* obs_cam, const int* obs_pt, float* pt_out,
-                  float* cam_out, float* x_out, float* y_out, long long M,
-                  int P, int Nc, void* stream) {
+                  long long jp_sf, long long r_sm, long long r_sf, int rows,
+                  const int* pt_order, const int* pt_start,
+                  const int* cam_order, const int* cam_start, float* g_work,
+                  float* pt_out, float* cam_out, float* x_out, float* y_out,
+                  long long M, int P, int Np, int Nc, void* stream) {
   if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
-  if (M == 0) return (int)cudaSuccess;
-  DeviceInfo info;
-  const cudaError_t err = device_info(&info);
-  if (err != cudaSuccess) return (int)err;
-  const long long strides[8] = {jc_sm, jc_sf, ji_sm, ji_sf,
-                                jp_sm, jp_sf, r_sm,  r_sf};
-  if (cam_bytes(Nc) + group_bytes(P) <= (size_t)info.smem_optin)
-    return launch<true>(jc, ji, jp, r, strides, obs_cam, obs_pt, pt_out,
-                        cam_out, x_out, y_out, M, P, Nc, info.sms, stream);
-  return launch<false>(jc, ji, jp, r, strides, obs_cam, obs_pt, pt_out,
-                       cam_out, x_out, y_out, M, P, Nc, info.sms, stream);
+  const Strides st = {{jc_sm, jc_sf, ji_sm, ji_sf, jp_sm, jp_sf, r_sm, r_sf}};
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (rows)
+    return launch<true>(jc, ji, jp, r, st, pt_order, pt_start, cam_order,
+                        cam_start, g_work, pt_out, cam_out, x_out, y_out, M,
+                        P, Np, Nc, s);
+  return launch<false>(jc, ji, jp, r, st, pt_order, pt_start, cam_order,
+                       cam_start, g_work, pt_out, cam_out, x_out, y_out, M, P,
+                       Np, Nc, s);
 }
 
 }  // extern "C"

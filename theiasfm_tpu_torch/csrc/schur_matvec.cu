@@ -15,7 +15,8 @@
 // _pass1_t_kernel (:259) and its row-layout twin _pass1_kernel (:147);
 // schur_pass2 replaces _pass2_t_kernel (:333) and _pass2_kernel (:203).
 // The jacobians come as any strided (F, M) view — a (12, M) tensor or
-// the .T of an (M, 12) one — so one kernel serves both layouts.
+// the .T of an (M, 12) one — so one kernel serves both layouts (pass 1
+// has wider loads for the transposed layout).
 //
 // What bounds them on this card: bytes. Each pass reads the three
 // jacobians (18 + 2P values per observation: 40 bytes at P = 1 in bf16,
@@ -30,12 +31,22 @@
 //   windows accumulated by an unguarded read-modify-write; camera sums
 //   carried in one VMEM scratch across the grid). Blocks here run
 //   concurrently and in no order.
-// * Point side (pass 1): observations are sorted by point, so each warp
-//   reduces every run of equal point ids with a segmented shuffle scan
-//   and only the run's first lane issues the three atomicAdds. Runs are
-//   found from adjacent ids, so an unsorted order stays correct (it only
-//   makes runs shorter). No cumsum-and-difference: that cancels
-//   catastrophically on monotone sums.
+// * Pass 1 takes no atomics. It sums wp per point over the point
+//   index (pt_start, each point's segment; pt_order, the observations in
+//   point order, or none when they are sorted, the solver's case), built
+//   once per solve. Block b owns 256 points and so a run of observations;
+//   each thread computes u and Jpᵀ round(u) for four observations into
+//   shared memory (the tile), then thread j adds point j's slots in
+//   observation order and stores wp once. In the transposed layout a
+//   thread's four observations are consecutive: one 8-byte (bf16) or
+//   16-byte (f32) load per jacobian row, u stored 16 bytes at a time. At
+//   other strides (the row layout's .T views) they are 32 apart, so that
+//   adjacent lanes read adjacent rows, one value per load (reading a row
+//   in 4- to 16-byte pieces measured 2% slower at Notre-Dame in bf16 and
+//   3-8% faster at 5M observations or in f32: not worth a third path).
+//   About 52 bytes per observation in bf16 (40 of jacobians, 4 of camera
+//   id, 8 of u) and 16 per point (its start, wp). No cumsum-and-
+//   difference: that cancels catastrophically on monotone sums.
 // * Pass 2 runs in two stages and takes no atomics, so two launches on
 //   the same inputs give the same bits. Stage A (schur_pass2_obs), in
 //   point order: d and the six products y = Jcᵀd per observation, written
@@ -68,22 +79,23 @@
 // vg is rounded to the matvec type. Products are formed in f32 from the
 // (possibly bf16) inputs and every sum accumulates in f32 — the TPU
 // multiplies bf16 values in bf16, so the two differ by at most one bf16
-// ulp per product. Pass 1's atomic point sums make their summation order,
-// and so their last f32 bits, vary from run to run; pass 2's do not.
+// ulp per product. Every sum has a fixed order: two launches on the same
+// inputs give the same bits.
 //
-// The kernels allocate nothing: the wrapper hands in the outputs (wp
-// zero-filled, the rest written whole), pass 2's workspaces (allocated
-// once per solve with the camera index) and the stream (PyTorch's
-// current stream), and each entry point returns cudaGetLastError() for
-// the wrapper to check. No entry point queries the device: pass 2's grid
-// is the block capacity of g_work, sized once per device.
+// The kernels allocate nothing: the wrapper hands in the indices, the
+// outputs (each written whole), pass 2's workspaces (allocated once per
+// solve with the camera index) and the stream (PyTorch's current
+// stream), and each entry point returns cudaGetLastError() for the
+// wrapper to check. No entry point queries the device: pass 2's grid is
+// the block capacity of g_work, sized once per device.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kPass1Threads = 256;
+constexpr int kPass1Threads = 256;  // points per block of pass 1
+constexpr int kMaxP = 10;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float load(const float* p, long long i) {
@@ -111,80 +123,235 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+// four values of type T at p (aligned to 4 values)
+__device__ __forceinline__ void load4(const float* p, float* o) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v);
+  const float2 a = __bfloat1622float2(h[0]);
+  const float2 b = __bfloat1622float2(h[1]);
+  o[0] = a.x;
+  o[1] = a.y;
+  o[2] = b.x;
+  o[3] = b.y;
+}
+
+// Pass 1's input layouts, chosen by the wrapper. kColumns: each (F, M)
+// jacobian row is contiguous along M and aligned to 4 values (the
+// transposed layout): a thread reads its four observations of a row with
+// one 8-byte (bf16) or 16-byte (f32) load. kAnyStrides: one value per
+// load at any strides, and the observations in the point order when they
+// are not sorted by point.
+constexpr int kAnyStrides = 0;
+constexpr int kColumns = 1;
+constexpr int kPass1Tile = 4 * kPass1Threads;  // positions per tile
+
+__device__ __forceinline__ int tile_slot(int i) { return i + (i >> 5); }
+
+// u and Jpᵀ round(u) of the four observations at positions i0 + step·k
+// (k < 4) of the point order: step 1 in kColumns (four consecutive
+// observations per thread), else 32 (adjacent lanes on adjacent
+// observations, so that the lanes' row loads coalesce); positions outside
+// [lo, hi) belong to another block and are neither computed nor written
+// (their t stays 0).
+template <typename T, int kLayout>
+__device__ __forceinline__ void pass1_quad(
+    const T* __restrict__ jc, const T* __restrict__ ji,
+    const T* __restrict__ jp, long long jc_sf, long long jc_sm,
+    long long ji_sf, long long ji_sm, long long jp_sf, long long jp_sm,
+    const int* __restrict__ obs_cam, const int* __restrict__ pt_order,
+    const float* __restrict__ vc, const float* vg_s, float* __restrict__ u,
+    long long M, int P, long long i0, long long lo, long long hi,
+    float t[3][4]) {
+  constexpr int step = kLayout == kColumns ? 1 : 32;
+  bool valid[4];
+  bool any = false, all = true;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    valid[k] = i0 + step * k >= lo && i0 + step * k < hi;
+    any |= valid[k];
+    all &= valid[k];
+#pragma unroll
+    for (int c = 0; c < 3; ++c) t[c][k] = 0.f;
+  }
+  if (!any) return;
+  long long m[4];
+  int cam[4];
+  if (kLayout == kColumns) {
+    const int4 c4 = *reinterpret_cast<const int4*>(obs_cam + i0);
+    cam[0] = c4.x;
+    cam[1] = c4.y;
+    cam[2] = c4.z;
+    cam[3] = c4.w;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) m[k] = i0 + k;
+  } else {
+    // a position outside [lo, hi) reads the nearest one inside, so that
+    // every load is made unconditionally; its results are not written
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const long long i = min(max(i0 + step * k, lo), hi - 1);
+      m[k] = pt_order ? pt_order[i] : i;
+      cam[k] = obs_cam[m[k]];
+    }
+  }
+  float u0[4], u1[4], q[6][4];
+  if (kLayout == kColumns) {
+    float a[4], b[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) u0[k] = u1[k] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) {
+      load4(jc + i * jc_sf + i0, a);
+      load4(jc + (6 + i) * jc_sf + i0, b);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float v = round_mv<T>(vc[(long long)cam[k] * 6 + i]);
+        u0[k] += a[k] * v;
+        u1[k] += b[k] * v;
+      }
+    }
+    float g0[4] = {0.f, 0.f, 0.f, 0.f}, g1[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int p = 0; p < P; ++p) {
+      load4(ji + p * ji_sf + i0, a);
+      load4(ji + (P + p) * ji_sf + i0, b);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        g0[k] += a[k] * vg_s[p];
+        g1[k] += b[k] * vg_s[p];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      u0[k] += g0[k];
+      u1[k] += g1[k];
+    }
+#pragma unroll
+    for (int c = 0; c < 6; ++c) load4(jp + c * jp_sf + i0, q[c]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      u0[k] = u1[k] = 0.f;
+      float c[12], w[6];
+#pragma unroll
+      for (int f = 0; f < 12; ++f) c[f] = load(jc, f * jc_sf + m[k] * jc_sm);
+#pragma unroll
+      for (int f = 0; f < 6; ++f) w[f] = load(jp, f * jp_sf + m[k] * jp_sm);
+#pragma unroll
+      for (int i = 0; i < 6; ++i) {
+        const float v = round_mv<T>(vc[(long long)cam[k] * 6 + i]);
+        u0[k] += c[i] * v;
+        u1[k] += c[6 + i] * v;
+      }
+      float g0 = 0.f, g1 = 0.f;
+      for (int p = 0; p < P; ++p) {
+        g0 += load(ji, p * ji_sf + m[k] * ji_sm) * vg_s[p];
+        g1 += load(ji, (P + p) * ji_sf + m[k] * ji_sm) * vg_s[p];
+      }
+      u0[k] += g0;
+      u1[k] += g1;
+#pragma unroll
+      for (int i = 0; i < 6; ++i) q[i][k] = w[i];
+    }
+  }
+  if (kLayout == kColumns && all) {
+    *reinterpret_cast<float4*>(u + i0) =
+        make_float4(u0[0], u0[1], u0[2], u0[3]);
+    *reinterpret_cast<float4*>(u + M + i0) =
+        make_float4(u1[0], u1[1], u1[2], u1[3]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      if (!valid[k]) continue;
+      u[m[k]] = u0[k];
+      u[M + m[k]] = u1[k];
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (!valid[k]) continue;
+    const float a = round_mv<T>(u0[k]);
+    const float b = round_mv<T>(u1[k]);
+    t[0][k] = q[0][k] * a + q[3][k] * b;
+    t[1][k] = q[1][k] * a + q[4][k] * b;
+    t[2][k] = q[2][k] * a + q[5][k] * b;
+  }
+}
+
+// Pass 1: block b owns points [256b, 256b + 256), whose observations are
+// the positions [lo, hi) = [pt_start[256b], pt_start[256b + 256]) of the
+// point order. It walks them in tiles of 1024 positions from lo rounded
+// down to a multiple of 4: each thread computes u and t = Jpᵀ round(u) for
+// four positions of the tile into shared memory, then thread j adds the
+// slots of point 256b + j in position order. wp is stored once per point.
+template <typename T, int kLayout>
 __global__ void __launch_bounds__(kPass1Threads)
 schur_pass1_kernel(const T* __restrict__ jc, const T* __restrict__ ji,
                    const T* __restrict__ jp, long long jc_sf, long long jc_sm,
                    long long ji_sf, long long ji_sm, long long jp_sf,
                    long long jp_sm, const int* __restrict__ obs_cam,
-                   const int* __restrict__ obs_pt,
+                   const int* __restrict__ pt_order,
+                   const int* __restrict__ pt_start,
                    const float* __restrict__ vc, const float* __restrict__ vg,
                    float* __restrict__ u, float* __restrict__ wp, long long M,
-                   int P) {
-  const long long m = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const bool valid = m < M;
-  int pt = -1;
-  float t0 = 0.f, t1 = 0.f, t2 = 0.f;
-  if (valid) {
-    const long long cam = obs_cam[m];
-    pt = obs_pt[m];
-    const long long jc_m = m * jc_sm;
-    float u0 = 0.f, u1 = 0.f;
-#pragma unroll
-    for (int i = 0; i < 6; ++i) {
-      const float v = round_mv<T>(vc[cam * 6 + i]);
-      u0 += load(jc, i * jc_sf + jc_m) * v;
-      u1 += load(jc, (6 + i) * jc_sf + jc_m) * v;
-    }
-    const long long ji_m = m * ji_sm;
-    float g0 = 0.f, g1 = 0.f;
-    for (int p = 0; p < P; ++p) {
-      const float v = round_mv<T>(vg[p]);
-      g0 += load(ji, p * ji_sf + ji_m) * v;
-      g1 += load(ji, (P + p) * ji_sf + ji_m) * v;
-    }
-    u0 += g0;
-    u1 += g1;
-    u[m] = u0;
-    u[M + m] = u1;
-    const float a = round_mv<T>(u0);
-    const float b = round_mv<T>(u1);
-    const long long jp_m = m * jp_sm;
-    t0 = load(jp, 0 * jp_sf + jp_m) * a + load(jp, 3 * jp_sf + jp_m) * b;
-    t1 = load(jp, 1 * jp_sf + jp_m) * a + load(jp, 4 * jp_sf + jp_m) * b;
-    t2 = load(jp, 2 * jp_sf + jp_m) * a + load(jp, 5 * jp_sf + jp_m) * b;
+                   int P, int Np) {
+  __shared__ float t_s[3][kPass1Tile + kPass1Tile / 32];
+  __shared__ float vg_s[kMaxP];
+  const int tid = threadIdx.x;
+  const int p0 = blockIdx.x * kPass1Threads;
+  const int p = p0 + tid;
+  const int p_end = min(p0 + kPass1Threads, Np);
+  if (tid < P) vg_s[tid] = round_mv<T>(vg[tid]);
+  const long long lo = pt_start[p0], hi = pt_start[p_end];
+  long long s = 0, e = 0;
+  if (p < Np) {
+    s = pt_start[p];
+    e = pt_start[p + 1];
   }
-  // Segmented suffix scan over runs of equal point ids inside the warp:
-  // after it, each run's first lane holds the run's sum. A run is the
-  // lanes [head, next head); heads come from adjacent ids only.
-  const int prev_pt = __shfl_up_sync(kFull, pt, 1);
-  const bool head = lane == 0 || prev_pt != pt;
-  const unsigned heads = __ballot_sync(kFull, head);
-  const unsigned above = heads & ~(kFull >> (31 - lane));  // lanes > lane
-  const int run_end = above ? __ffs(above) - 1 : 32;
+  __syncthreads();
+  float w0 = 0.f, w1 = 0.f, w2 = 0.f;
+  // this thread's first slot of a tile and the step between its four
+  const int slot0 = kLayout == kColumns ? 4 * tid
+                                         : 128 * (tid >> 5) + (tid & 31);
+  const int step = kLayout == kColumns ? 1 : 32;
+  for (long long tb = lo & ~3LL; tb < hi; tb += kPass1Tile) {
+    float t[3][4];
+    pass1_quad<T, kLayout>(jc, ji, jp, jc_sf, jc_sm, ji_sf, ji_sm, jp_sf,
+                           jp_sm, obs_cam, pt_order, vc, vg_s, u, M, P,
+                           tb + slot0, lo, hi, t);
 #pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    const float o0 = __shfl_down_sync(kFull, t0, off);
-    const float o1 = __shfl_down_sync(kFull, t1, off);
-    const float o2 = __shfl_down_sync(kFull, t2, off);
-    if (lane + off < run_end) {
-      t0 += o0;
-      t1 += o1;
-      t2 += o2;
+    for (int k = 0; k < 4; ++k) {
+      const int j = tile_slot(slot0 + step * k);
+      t_s[0][j] = t[0][k];
+      t_s[1][j] = t[1][k];
+      t_s[2][j] = t[2][k];
     }
+    __syncthreads();
+    const long long a = s > tb ? s : tb;
+    const long long b = e < tb + kPass1Tile ? e : tb + kPass1Tile;
+    for (long long i = a; i < b; ++i) {
+      const int j = tile_slot((int)(i - tb));
+      w0 += t_s[0][j];
+      w1 += t_s[1][j];
+      w2 += t_s[2][j];
+    }
+    __syncthreads();
   }
-  if (valid && head) {
-    float* w = wp + (long long)pt * 3;
-    atomicAdd(w + 0, t0);
-    atomicAdd(w + 1, t1);
-    atomicAdd(w + 2, t2);
+  if (p < Np) {
+    wp[3LL * p + 0] = w0;
+    wp[3LL * p + 1] = w1;
+    wp[3LL * p + 2] = w2;
   }
 }
 
 constexpr int kPass2ObsThreads = 256;
 constexpr int kPass2CamWarps = 8;  // cameras per block of stage B
-constexpr int kMaxP = 10;
 
 // Stage A of pass 2, in point order: y[m] = Jcᵀd (M, 6) and one (4P,)
 // partial of Jiᵀd per block, in a fixed order: every thread sums its
@@ -311,18 +478,43 @@ schur_pass2_cam_kernel(const float* __restrict__ y,
   }
 }
 
+template <typename T, int kLayout>
+void launch_pass1_layout(unsigned blocks, cudaStream_t stream, const void* jc,
+                         const void* ji, const void* jp, long long jc_sf,
+                         long long jc_sm, long long ji_sf, long long ji_sm,
+                         long long jp_sf, long long jp_sm, const int* obs_cam,
+                         const int* pt_order, const int* pt_start,
+                         const float* vc, const float* vg, float* u,
+                         float* wp, long long M, int P, int Np) {
+  schur_pass1_kernel<T, kLayout><<<blocks, kPass1Threads, 0, stream>>>(
+      (const T*)jc, (const T*)ji, (const T*)jp, jc_sf, jc_sm, ji_sf, ji_sm,
+      jp_sf, jp_sm, obs_cam, pt_order, pt_start, vc, vg, u, wp, M, P, Np);
+}
+
+// layout: kColumns (the wrapper checked the strides, the alignment and
+// M % 4 == 0; it needs the observations in point order, pt_order null),
+// else kAnyStrides.
 template <typename T>
 int launch_pass1(const void* jc, const void* ji, const void* jp,
                  long long jc_sf, long long jc_sm, long long ji_sf,
-                 long long ji_sm, long long jp_sf, long long jp_sm,
-                 const int* obs_cam, const int* obs_pt, const float* vc,
-                 const float* vg, float* u, float* wp, long long M, int P,
-                 void* stream) {
-  const long long blocks = (M + kPass1Threads - 1) / kPass1Threads;
-  schur_pass1_kernel<T><<<(unsigned)blocks, kPass1Threads, 0,
-                          (cudaStream_t)stream>>>(
-      (const T*)jc, (const T*)ji, (const T*)jp, jc_sf, jc_sm, ji_sf, ji_sm,
-      jp_sf, jp_sm, obs_cam, obs_pt, vc, vg, u, wp, M, P);
+                 long long ji_sm, long long jp_sf, long long jp_sm, int layout,
+                 const int* obs_cam, const int* pt_order, const int* pt_start,
+                 const float* vc, const float* vg, float* u, float* wp,
+                 long long M, int P, int Np, void* stream) {
+  if (P < 1 || P > kMaxP) return (int)cudaErrorInvalidValue;
+  if (pt_order != nullptr) layout = kAnyStrides;
+  const unsigned blocks = (unsigned)((Np + kPass1Threads - 1) / kPass1Threads);
+  if (blocks == 0) return (int)cudaSuccess;
+  const cudaStream_t s = (cudaStream_t)stream;
+#define PASS1(L)                                                              \
+  launch_pass1_layout<T, L>(blocks, s, jc, ji, jp, jc_sf, jc_sm, ji_sf,       \
+                            ji_sm, jp_sf, jp_sm, obs_cam, pt_order, pt_start, \
+                            vc, vg, u, wp, M, P, Np)
+  if (layout == kColumns)
+    PASS1(kColumns);
+  else
+    PASS1(kAnyStrides);
+#undef PASS1
   return (int)cudaGetLastError();
 }
 
@@ -386,23 +578,26 @@ extern "C" {
 int schur_pass1_f32(const void* jc, const void* ji, const void* jp,
                     long long jc_sf, long long jc_sm, long long ji_sf,
                     long long ji_sm, long long jp_sf, long long jp_sm,
-                    const int* obs_cam, const int* obs_pt, const float* vc,
-                    const float* vg, float* u, float* wp, long long M, int P,
+                    int layout, const int* obs_cam, const int* pt_order,
+                    const int* pt_start, const float* vc, const float* vg,
+                    float* u, float* wp, long long M, int P, int Np,
                     void* stream) {
   return launch_pass1<float>(jc, ji, jp, jc_sf, jc_sm, ji_sf, ji_sm, jp_sf,
-                             jp_sm, obs_cam, obs_pt, vc, vg, u, wp, M, P,
-                             stream);
+                             jp_sm, layout, obs_cam, pt_order, pt_start, vc,
+                             vg, u, wp, M, P, Np, stream);
 }
 
 int schur_pass1_bf16(const void* jc, const void* ji, const void* jp,
                      long long jc_sf, long long jc_sm, long long ji_sf,
                      long long ji_sm, long long jp_sf, long long jp_sm,
-                     const int* obs_cam, const int* obs_pt, const float* vc,
-                     const float* vg, float* u, float* wp, long long M, int P,
+                     int layout, const int* obs_cam, const int* pt_order,
+                     const int* pt_start, const float* vc, const float* vg,
+                     float* u, float* wp, long long M, int P, int Np,
                      void* stream) {
   return launch_pass1<__nv_bfloat16>(jc, ji, jp, jc_sf, jc_sm, ji_sf, ji_sm,
-                                     jp_sf, jp_sm, obs_cam, obs_pt, vc, vg, u,
-                                     wp, M, P, stream);
+                                     jp_sf, jp_sm, layout, obs_cam, pt_order,
+                                     pt_start, vc, vg, u, wp, M, P, Np,
+                                     stream);
 }
 
 int schur_pass2_f32(const void* jc, const void* ji, const void* jp,

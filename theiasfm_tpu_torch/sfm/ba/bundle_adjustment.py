@@ -45,6 +45,7 @@ raises NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -355,22 +356,26 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
         return torch.einsum("mkp,mp->mk", Ji3, vg[obs_group])
 
     use_kernels = kernels_eligible(prob, opts)
-    blocks_fn = (fm.blocks if blocks_kernel_eligible(prob, opts)
-                 else fm.blocks_plain)
     dense = opts.linear_solver == "dense_schur"
     # the dense solver's observation pairs: fixed by pt_idx_map, so found
     # once per solve
     obs_pairs = _point_obs_pairs(prob) if dense else None
-    cam_index = None
-    if use_kernels and M:
-        # the kernels trust their indices: check them once per solve
-        lo = torch.stack([obs_cam.min(), obs_pt.min()])
-        hi = torch.stack([obs_cam.max(), obs_pt.max()])
-        (cmin, pmin), (cmax, pmax) = lo.tolist(), hi.tolist()
-        if min(cmin, pmin) < 0 or cmax >= Nc or pmax >= Np:
-            raise ValueError("observation indices out of range")
-        # pass 2's camera order, fixed by obs_cam: once per solve
+    cam_index = pt_index = None
+    if use_kernels:
+        if M:
+            # the kernels trust their indices: check them once per solve
+            lo = torch.stack([obs_cam.min(), obs_pt.min()])
+            hi = torch.stack([obs_cam.max(), obs_pt.max()])
+            (cmin, pmin), (cmax, pmax) = lo.tolist(), hi.tolist()
+            if min(cmin, pmin) < 0 or cmax >= Nc or pmax >= Np:
+                raise ValueError("observation indices out of range")
+        # the kernels' camera and point segments, fixed by obs_cam and
+        # obs_pt: once per solve
         cam_index = fm.camera_index(obs_cam, Nc)
+        pt_index = fm.point_index(obs_pt, Np)
+    blocks_fn = (functools.partial(fm.blocks, cam_index=cam_index,
+                                   pt_index=pt_index)
+                 if blocks_kernel_eligible(prob, opts) else fm.blocks_plain)
 
     def build_system(extr, intr, pts, r0):
         """Weighted residuals and jacobians at (extr, intr, pts); r0 are
@@ -478,7 +483,8 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
             def S_matvec(vc, vg):
                 count_dispatch("schur_matvec")
                 u, wp = fm.pass1(jc_k, ji_k, jp_k, obs_cam, obs_pt,
-                                 vc.contiguous(), vg[0].contiguous(), Np)
+                                 vc.contiguous(), vg[0].contiguous(), Np,
+                                 pt_index)
                 zp = _mat3vec(Hpp_inv, wp)
                 yc, yg2 = fm.pass2(jc_k, ji_k, jp_k, obs_cam, obs_pt, u,
                                    zp, Nc, cam_index)

@@ -6,13 +6,16 @@ CG loop (pass1, pass2) and the normal-equation blocks of make_blocks
 One matrix-free product S·v is two sweeps over the observations with a
 small torch step between them (bundle_adjustment.solve_normal_eqs):
 
-    u, wp  = pass1(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts)
+    u, wp  = pass1(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts, pt_index)
     zp     = Hpp^-1 wp                           (torch glue)
     yc, yg = pass2(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams, cam_index)
 
-cam_index = camera_index(obs_cam, n_cams) is pass 2's camera index (the
-observations in camera order, each camera's segment and, on CUDA, stage
-A's (M, 6) workspace), built once per solve; pass 2 on CUDA requires it.
+cam_index = camera_index(obs_cam, n_cams) is the camera index (the
+observations in camera order, each camera's segment and, on CUDA, pass
+2's stage-A workspaces) and pt_index = point_index(obs_pt, n_pts) the
+point index (each point's segment, and the point order when obs_pt is not
+sorted); both are built once per solve. On CUDA pass 1 requires the point
+index, pass 2 the camera index and blocks both.
 
 The jacobians come as any strided (F, M) view: a (12, M) tensor (the
 transposed layout, `pallas_transposed=True`) or the `.T` of an (M, 12)
@@ -159,7 +162,7 @@ def _part_blocks(device_index):
 
 
 class CameraIndex(NamedTuple):
-    """Pass 2's camera index, fixed by obs_cam (see camera_index)."""
+    """The camera index, fixed by obs_cam (see camera_index)."""
     order: torch.Tensor             # (M,) int32
     start: torch.Tensor             # (n_cams + 1,) int32
     y_work: Optional[torch.Tensor]  # (M, 6) f32 on CUDA, else None
@@ -167,19 +170,17 @@ class CameraIndex(NamedTuple):
 
 
 def camera_index(obs_cam, n_cams):
-    """Pass 2's camera index: cam_order, the observations sorted by
-    camera, stably, so each camera keeps point order; cam_start, where
-    each camera's segment of cam_order starts (cam_start[-1] = M). On a
-    CUDA device it also holds the kernel's workspaces: y_work, the (M, 6)
-    rows that stage A writes and stage B reads, and g_work, stage A's
-    group partials, one row per block of its grid (the device's cap).
-    Every pass 2 given this index reuses them, so calls that share it run
-    on one stream. On obs_cam's device."""
+    """Pass 2's and ba_blocks' camera index: cam_order, the observations
+    sorted by camera, stably, so each camera keeps point order;
+    cam_start, where each camera's segment of cam_order starts
+    (cam_start[-1] = M). On a CUDA device it also holds pass 2's
+    workspaces: y_work, the (M, 6) rows that stage A writes and stage B
+    reads, and g_work, stage A's group partials, one row per block of its
+    grid (the device's cap). Every pass 2 given this index reuses them,
+    so calls that share it run on one stream. On obs_cam's device."""
     dev = obs_cam.device
     order = torch.sort(obs_cam, stable=True).indices.to(torch.int32)
-    counts = torch.bincount(obs_cam.long(), minlength=n_cams)
-    start = torch.zeros(n_cams + 1, dtype=torch.int32, device=dev)
-    start[1:] = torch.cumsum(counts, 0)
+    start = _segment_starts(obs_cam, n_cams)
     if dev.type != "cuda":
         return CameraIndex(order, start, None, None)
     parts = _part_blocks(dev.index if dev.index is not None
@@ -191,12 +192,49 @@ def camera_index(obs_cam, n_cams):
         torch.empty((parts, 4 * MAX_P), dtype=f32, device=dev))
 
 
+class PointIndex(NamedTuple):
+    """The point index, fixed by obs_pt (see point_index)."""
+    order: Optional[torch.Tensor]   # (M,) int32; None when obs_pt is sorted
+    start: torch.Tensor             # (n_pts + 1,) int32
+
+
+def point_index(obs_pt, n_pts):
+    """Pass 1's and ba_blocks' point index: start, where each point's
+    segment of the point order begins (start[-1] = M), and order, the
+    observations sorted by point, stably, or None when obs_pt is already
+    sorted (the solver's case: MatvecPlan requires it), where the point
+    order is the storage order. On obs_pt's device; one host sync."""
+    M = obs_pt.shape[0]
+    is_sorted = M < 2 or bool((obs_pt[1:] >= obs_pt[:-1]).all())
+    order = (None if is_sorted else
+             torch.sort(obs_pt, stable=True).indices.to(torch.int32))
+    return PointIndex(order, _segment_starts(obs_pt, n_pts))
+
+
+def _segment_starts(ids, n):
+    start = torch.zeros(n + 1, dtype=torch.int32, device=ids.device)
+    start[1:] = torch.cumsum(torch.bincount(ids.long(), minlength=n), 0)
+    return start
+
+
+def _segment_sums(y, order, start):
+    lengths = (start[1:] - start[:-1]).long()
+    rows = y if order is None else y[order.long()]
+    return torch.segment_reduce(rows, "sum", lengths=lengths, unsafe=True)
+
+
 def camera_sums_plain(y, cam_index):
-    """Plain version of pass 2's stage B: the (M, F) rows of y summed per
-    camera over the segments of cam_index, (n_cams, F)."""
-    lengths = (cam_index.start[1:] - cam_index.start[:-1]).long()
-    return torch.segment_reduce(y[cam_index.order.long()], "sum",
-                                lengths=lengths, unsafe=True)
+    """Plain version of the kernels' camera sums (pass 2's stage B,
+    ba_blocks' camera sweep): the (M, F) rows of y summed per camera over
+    the segments of cam_index, (n_cams, F)."""
+    return _segment_sums(y, cam_index.order, cam_index.start)
+
+
+def point_sums_plain(y, pt_index):
+    """Plain version of the kernels' point sums (pass 1's wp, ba_blocks'
+    point sweep): the (M, F) rows of y summed per point over the segments
+    of pt_index, (n_pts, F)."""
+    return _segment_sums(y, pt_index.order, pt_index.start)
 
 
 # ---------------------------------------------------------------------------
@@ -248,8 +286,58 @@ def _raise_on(err, name):
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
 
 
-def pass1(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts):
-    """First sweep of S·v. Returns (u (2, M) f32, wp (n_pts, 3) f32)."""
+def _camera_segments(cam_index, jc, M, n_cams, who):
+    """The camera index's (order, start), checked against the call (jc's
+    device, M observations, n_cams cameras)."""
+    if not isinstance(cam_index, CameraIndex):
+        raise ValueError(f"{who} on CUDA takes cam_index=camera_index("
+                         "obs_cam, n_cams), built once per solve")
+    order, start = cam_index.order, cam_index.start
+    _check_cuda(jc, order, start)
+    _check_vec("cam_index.order", order, (M,), torch.int32)
+    _check_vec("cam_index.start", start, (n_cams + 1,), torch.int32)
+    return order, start
+
+
+def _point_segments(pt_index, jc, M, n_pts, who):
+    """The point index's (order or None, start), checked against the
+    call (jc's device, M observations, n_pts points)."""
+    if not isinstance(pt_index, PointIndex):
+        raise ValueError(f"{who} on CUDA takes pt_index=point_index("
+                         "obs_pt, n_pts), built once per solve")
+    order, start = pt_index
+    _check_cuda(jc, start)
+    if order is not None:
+        _check_cuda(jc, order)
+        _check_vec("pt_index.order", order, (M,), torch.int32)
+    _check_vec("pt_index.start", start, (n_pts + 1,), torch.int32)
+    return order, start
+
+
+# pass 1's input layouts (csrc/schur_matvec.cu)
+_ANY_STRIDES, _COLUMNS = 0, 1
+
+
+def _pass1_layout(jc, ji, jp, obs_cam, M):
+    """_COLUMNS when every jacobian row is contiguous along M and aligned
+    to 4 values (the transposed layout), M % 4 == 0 and obs_cam is aligned
+    to 16 bytes: the kernel then reads four consecutive observations per
+    thread in storage order, so they must be sorted by point (the
+    caller's part). Else _ANY_STRIDES."""
+    if M % 4 or obs_cam.data_ptr() % 16:
+        return _ANY_STRIDES
+    es = jc.element_size()
+    if all(t.stride(1) == 1 and t.stride(0) % 4 == 0 and
+           t.data_ptr() % (4 * es) == 0 for t in (jc, ji, jp)):
+        return _COLUMNS
+    return _ANY_STRIDES
+
+
+def pass1(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts, pt_index=None):
+    """First sweep of S·v. Returns (u (2, M) f32, wp (n_pts, 3) f32).
+    pt_index: point_index(obs_pt, n_pts), required on CUDA, where the
+    kernel sums wp over its segments (a solve builds it once); the CPU
+    path ignores it."""
     if jc.device.type == "cpu":
         return pass1_plain(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts)
     M, P = _check_jacobians(jc, ji, jp)
@@ -259,18 +347,23 @@ def pass1(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts):
     _check_vec("obs_pt", obs_pt, (M,), torch.int32)
     _check_vec("vc", vc, (Nc, 6), torch.float32)
     _check_vec("vg", vg, (P,), torch.float32)
-    # the kernel writes u whole and adds into wp
-    u = torch.empty((2, M), dtype=torch.float32, device=jc.device)
-    wp = torch.zeros((n_pts, 3), dtype=torch.float32, device=jc.device)
+    order, start = _point_segments(pt_index, jc, M, n_pts, "pass1")
+    dev = jc.device
+    u = torch.empty((2, M), dtype=torch.float32, device=dev)
     if M == 0:
-        return u, wp
+        return u, torch.zeros((n_pts, 3), dtype=torch.float32, device=dev)
+    # the kernel writes u and wp whole
+    wp = torch.empty((n_pts, 3), dtype=torch.float32, device=dev)
+    layout = (_pass1_layout(jc, ji, jp, obs_cam, M) if order is None
+              else _ANY_STRIDES)
     from ... import _kernels
     name = f"schur_pass1_{_SUFFIX[jc.dtype]}"
     fn = getattr(_kernels.library(), name)
     err = fn(jc.data_ptr(), ji.data_ptr(), jp.data_ptr(),
-             *_strides(jc, ji, jp), obs_cam.data_ptr(), obs_pt.data_ptr(),
+             *_strides(jc, ji, jp), layout, obs_cam.data_ptr(),
+             None if order is None else order.data_ptr(), start.data_ptr(),
              vc.data_ptr(), vg.data_ptr(), u.data_ptr(), wp.data_ptr(),
-             M, P, torch.cuda.current_stream(jc.device).cuda_stream)
+             M, P, n_pts, torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
     count_dispatch("schur_pass1")
     return u, wp
@@ -285,16 +378,12 @@ def pass2(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams, cam_index=None):
         return pass2_plain(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams)
     M, P = _check_jacobians(jc, ji, jp)
     _check_cuda(jc, ji, jp, obs_pt, u, zp)
-    if not isinstance(cam_index, CameraIndex) or cam_index.y_work is None:
-        raise ValueError("pass2 on CUDA takes cam_index=camera_index("
-                         "obs_cam, n_cams) on the card, built once per "
-                         "solve")
-    order, start, y_work, g_work = cam_index
-    _check_cuda(jc, order, start, y_work, g_work)
-    if order.shape != (M,) or start.shape != (n_cams + 1,):
-        raise ValueError(f"cam_index is for {order.shape[0]} observations "
-                         f"and {start.shape[0] - 1} cameras, not {M} and "
-                         f"{n_cams}")
+    if isinstance(cam_index, CameraIndex) and cam_index.y_work is None:
+        raise ValueError("pass2 on CUDA takes the camera index built on "
+                         "the card (it holds stage A's workspaces)")
+    order, start = _camera_segments(cam_index, jc, M, n_cams, "pass2")
+    y_work, g_work = cam_index.y_work, cam_index.g_work
+    _check_cuda(jc, y_work, g_work)
     _check_vec("obs_pt", obs_pt, (M,), torch.int32)
     _check_vec("u", u, (2, M), torch.float32)
     _check_vec("zp", zp, (zp.shape[0], 3), torch.float32)
@@ -359,41 +448,59 @@ def _check_blocks_inputs(jc, ji, jp, r):
     return M, P
 
 
-def blocks(jc, ji, jp, r, obs_cam, obs_pt, n_cams, n_pts):
+def _blocks_rows(jc, ji, jp, r):
+    """Whether every input's (M, F) rows are contiguous and aligned for
+    the kernel's loads of 4 values (F a multiple of 4) or 2."""
+    def fits(t):
+        vec = 4 if t.shape[1] % 4 == 0 else 2
+        return (t.stride(1) == 1 and t.stride(0) % vec == 0 and
+                t.data_ptr() % (4 * vec) == 0)
+    return all(fits(t) for t in (jc, ji, jp, r))
+
+
+def blocks(jc, ji, jp, r, obs_cam, obs_pt, n_cams, n_pts, cam_index=None,
+           pt_index=None):
     """make_blocks' observation sweep (see blocks_plain). On the CPU the
-    plain version runs; on CUDA tensors the ba_blocks kernel of
-    csrc/ba_blocks.cu (float32 only; the inputs may be any strided (M, F)
-    views), or a raise."""
+    plain version runs and the indices are not used; on CUDA tensors the
+    ba_blocks kernel of csrc/ba_blocks.cu (float32 only; the inputs may be
+    any strided (M, F) views), which sums over the segments of cam_index =
+    camera_index(obs_cam, n_cams) and pt_index = point_index(obs_pt,
+    n_pts), both required (a solve builds them once), or a raise."""
     if jc.device.type == "cpu":
         return blocks_plain(jc, ji, jp, r, obs_cam, obs_pt, n_cams, n_pts)
     M, P = _check_blocks_inputs(jc, ji, jp, r)
     _check_cuda(jc, ji, jp, r, obs_cam, obs_pt)
     _check_vec("obs_cam", obs_cam, (M,), torch.int32)
     _check_vec("obs_pt", obs_pt, (M,), torch.int32)
+    cam_order, cam_start = _camera_segments(cam_index, jc, M, n_cams,
+                                            "blocks")
+    pt_order, pt_start = _point_segments(pt_index, jc, M, n_pts, "blocks")
     dev = jc.device
-    pt = torch.zeros((n_pts, 12), dtype=torch.float32, device=dev)
-    cam = torch.zeros((n_cams, 42), dtype=torch.float32, device=dev)
-    X = torch.zeros((2 * P, 2 * P), dtype=torch.float32, device=dev)
-    Y = torch.zeros((2 * P, 2), dtype=torch.float32, device=dev)
+    f32 = torch.float32
     if M == 0:
-        return pt, cam, X, Y
+        return (torch.zeros((n_pts, 12), dtype=f32, device=dev),
+                torch.zeros((n_cams, 42), dtype=f32, device=dev),
+                torch.zeros((2 * P, 2 * P), dtype=f32, device=dev),
+                torch.zeros((2 * P, 2), dtype=f32, device=dev))
+    # the kernels write every output whole
+    pt = torch.empty((n_pts, 12), dtype=f32, device=dev)
+    cam = torch.empty((n_cams, 42), dtype=f32, device=dev)
+    X = torch.empty((2 * P, 2 * P), dtype=f32, device=dev)
+    Y = torch.empty((2 * P, 2), dtype=f32, device=dev)
+    # the point sweep's group partials (X's upper triangle, Y), one row
+    # per block of 256 points
+    g_work = torch.empty((-(-n_pts // 256), P * (2 * P + 1) + 4 * P),
+                         dtype=f32, device=dev)
     from ... import _kernels
     err = _kernels.library("ba_blocks").ba_blocks_f32(
         jc.data_ptr(), ji.data_ptr(), jp.data_ptr(), r.data_ptr(),
         *(s for t in (jc, ji, jp, r) for s in t.stride()),
-        obs_cam.data_ptr(), obs_pt.data_ptr(), pt.data_ptr(), cam.data_ptr(),
-        X.data_ptr(), Y.data_ptr(), M, P, n_cams,
+        int(_blocks_rows(jc, ji, jp, r)),
+        None if pt_order is None else pt_order.data_ptr(),
+        pt_start.data_ptr(), cam_order.data_ptr(), cam_start.data_ptr(),
+        g_work.data_ptr(), pt.data_ptr(), cam.data_ptr(), X.data_ptr(),
+        Y.data_ptr(), M, P, n_pts, n_cams,
         torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "ba_blocks_f32")
     count_dispatch("ba_blocks")
     return pt, cam, X, Y
-
-
-def blocks_camera_path(n_cams: int, P: int = 1) -> str:
-    """Which camera reduction ba_blocks uses on the current CUDA device for
-    this many cameras: "shared" (per-block shared-memory partials) or
-    "global" (atomics straight into device memory)."""
-    from ... import _kernels
-    flag = _kernels.library("ba_blocks").ba_blocks_shared_cams(n_cams, P)
-    _raise_on(-flag if flag < 0 else 0, "ba_blocks_shared_cams")
-    return "shared" if flag else "global"
