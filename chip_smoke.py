@@ -19,7 +19,12 @@ main paths:
   options) -> the batched top-2 matcher on all 28 pairs -> putative
   matches in the features-and-matches database (no geometric
   verification), checked against the views' ground-truth epipolar
-  geometry.
+  geometry;
+* the front end with geometric verification (FeatureMatcher's default
+  options, then guided matching): the same 28 pairs matched and
+  verified in one batched call per chunk, the verified poses held to
+  the ground truth and the card's verification to the port's on the
+  CPU.
 
 Every phase prints one JSON line; any failure raises, and the script
 exits non-zero without printing a result. It imports neither JAX nor the
@@ -59,6 +64,8 @@ from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
                                        bundle_adjust_view)
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
+from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as gvm
+from theiasfm_tpu_torch.sfm.pose import five_point as fpm
 from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
 from theiasfm_tpu_torch.utils import (dispatch_counts, next_bucket,
                                       reset_dispatch_counts)
@@ -1058,7 +1065,310 @@ def phase_frontend():
          pair_rows_differing=n_sym,
          card_vs_cpu_sift=list(agree), cpu_sift_s=cpu_s,
          peak_device_gib=peak)
-    return counts["top2_match"], pair_counts["top2_match"]
+    scene = dict(names=names, arrays=arrays, priors=priors, cams=cams)
+    return counts["top2_match"], pair_counts["top2_match"], scene
+
+
+# ------------------------------------------------------ frontend_verify
+
+def _true_relative(cam1, cam2):
+    """Ground-truth relative rotation (angle-axis) and unit position of
+    camera 2 in camera 1's frame (x_cam = R X + t)."""
+    R = cam2["R"] @ cam1["R"].T
+    t = cam2["t"] - R @ cam1["t"]
+    c = -R.T @ t
+    aa = rot.rotation_matrix_to_angle_axis(torch.from_numpy(R)).numpy()
+    return aa, c / np.linalg.norm(c)
+
+
+def _rotation_error_deg(aa1, aa2):
+    R1 = rot.angle_axis_to_rotation_matrix(torch.from_numpy(
+        np.asarray(aa1, float))).numpy()
+    R2 = rot.angle_axis_to_rotation_matrix(torch.from_numpy(
+        np.asarray(aa2, float))).numpy()
+    c = (np.trace(R1.T @ R2) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def _pose_errors(info, cam1, cam2):
+    """Rotation error and position-direction error (degrees) of a
+    TwoViewInfo against the ground truth."""
+    aa, c = _true_relative(cam1, cam2)
+    pos = np.asarray(info.position_2, float)
+    return (_rotation_error_deg(info.rotation_2, aa),
+            float(np.degrees(np.arccos(np.clip(
+                pos @ c / max(np.linalg.norm(pos), 1e-12), -1.0, 1.0)))))
+
+
+def _pair_records(db, scene, what):
+    """Per stored pair: verified and homography-inlier counts, pose
+    errors against the ground truth, share of the stored matches within
+    2 px of the true epipolar line. Raises unless every adjacent pair is
+    verified with >= 30 matches, >= 90% of them within 2 px."""
+    names, cams = scene["names"], scene["cams"]
+    rec = {}
+    for (a, b) in db.image_pairs_of_matches():
+        m = db.get_match(a, b)
+        i, j = names.index(a), names.index(b)
+        rot_err, dir_err = _pose_errors(m.twoview_info, cams[i], cams[j])
+        rec[f"{i}-{j}"] = dict(
+            verified=m.twoview_info.num_verified_matches,
+            homography_inliers=m.twoview_info.num_homography_inliers,
+            rotation_err_deg=rot_err, direction_err_deg=dir_err,
+            epipolar_share_2px=float(np.mean(_epipolar_px(
+                m.correspondences, cams[i], cams[j]) <= 2.0)))
+    for p in (f"{i}-{i + 1}" for i in range(N_VIEWS - 1)):
+        r = rec.get(p)
+        check(r is not None and r["verified"] >= 30,
+              f"{what}: adjacent pair {p} not verified with >= 30 ({r})")
+        check(r["epipolar_share_2px"] >= 0.9,
+              f"{what}: pair {p} epipolar share {r['epipolar_share_2px']}")
+    return rec
+
+
+def _check_pose(pose, what):
+    """At least a quarter of the verified pairs within 1 degree of the
+    true rotation and 3 degrees of the true position direction. (Not
+    every adjacent pair: on the same putative matches JAX's own
+    verification misses that bound too, in float32 and float64, on the
+    pairs where a planar twin of the essential matrix explains as many
+    matches as the true one; PERF.md, PR 6.)"""
+    check(4 * pose["within_1deg_3deg"] >= pose["pairs"],
+          f"{what}: poses against the ground truth: {pose}")
+
+
+def _pose_summary(errors):
+    """[(rotation, direction) error] -> the share within 1 and 3
+    degrees and the medians."""
+    rot_e = np.array([e[0] for e in errors])
+    dir_e = np.array([e[1] for e in errors])
+    return dict(pairs=len(errors),
+                within_1deg_3deg=int(np.sum((rot_e <= 1.0) &
+                                            (dir_e <= 3.0))),
+                median_rotation_err_deg=float(np.median(rot_e)),
+                median_direction_err_deg=float(np.median(dir_e)))
+
+
+class _VerifySpy:
+    """Records, during a run of the matcher, the arguments of its
+    verify_matches_batch call, the samples it drew and the call's wall
+    time (synchronized)."""
+
+    def __init__(self):
+        self.calls = []
+        self._draw = gvm.draw_verification_samples
+        self._verify = gvm.verify_matches_batch
+
+    def __enter__(self):
+        def draw(*a, **k):
+            out = self._draw(*a, **k)
+            self.calls[-1]["samples"] = out
+            return out
+
+        def verify(*a, **k):
+            self.calls.append(dict(args=a, kwargs=k))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self._verify(*a, **k)
+            torch.cuda.synchronize()
+            self.calls[-1]["seconds"] = time.perf_counter() - t0
+            self.calls[-1]["out"] = out
+            return out
+        gvm.draw_verification_samples = draw
+        gvm.verify_matches_batch = verify
+        return self
+
+    def __exit__(self, *exc):
+        gvm.draw_verification_samples = self._draw
+        gvm.verify_matches_batch = self._verify
+
+
+def _to_cpu(x):
+    return x.cpu() if isinstance(x, torch.Tensor) else x
+
+
+def _agreement(a_infos, b_infos, pairs):
+    """Pairs that two runs accept differently or whose verified counts
+    differ by more than 1% (or 2) or rotations by more than 0.05
+    degrees, and the largest differences over the pairs both accept."""
+    out = dict(accepted=[int(sum(i is not None for i in a_infos)),
+                         int(sum(i is not None for i in b_infos))],
+               max_count_diff=0, max_rotation_diff_deg=0.0, differing={})
+    for (i, j), a, b in zip(pairs, a_infos, b_infos):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                out["differing"][f"{i}-{j}"] = [
+                    None if x is None else x.num_verified_matches
+                    for x in (a, b)]
+            continue
+        dn = abs(a.num_verified_matches - b.num_verified_matches)
+        dr = _rotation_error_deg(a.rotation_2, b.rotation_2)
+        out["max_count_diff"] = max(out["max_count_diff"], dn)
+        out["max_rotation_diff_deg"] = max(out["max_rotation_diff_deg"], dr)
+        if dn > max(2, 0.01 * b.num_verified_matches) or dr > 0.05:
+            out["differing"][f"{i}-{j}"] = [a.num_verified_matches,
+                                            b.num_verified_matches, dr]
+    return out
+
+
+def _card_vs_cpu(call, scene, what):
+    """The chunk's verify_matches_batch once more with the samples the
+    card drew: on the CPU in float32 against the card's float32 run,
+    and on the card and on the CPU in float64. Reported per pair: the
+    acceptance, the verified counts (within 1% or 2) and the rotations
+    (within 0.05 degrees). Where two hypotheses explain a pair's matches
+    almost equally, rounding picks either (float32 often; float64
+    rarely, since the five-point solver's solution set itself depends on
+    rounding for ill-conditioned samples, tests/test_torch_pose.py), so
+    the gate allows 10% of the pairs to differ in float64. The float64
+    poses are held to the ground truth as the float32 ones are
+    (_check_pose)."""
+    names, cams = scene["names"], scene["cams"]
+    pairs = [(i, j) for i in range(len(names)) for j in range(i + 1,
+                                                              len(names))]
+    check(len(pairs) == len(call["out"][0]), f"{what}: a pair had too few "
+          "putative matches to be verified")
+    s = call["samples"]
+    args, kwargs = call["args"][1:], call["kwargs"]
+    cpu_args = [_to_cpu(a) for a in args]
+    cpu_kwargs = {k: _to_cpu(v) for k, v in kwargs.items()}
+    cpu_samples = gvm.VerificationSamples(s.essential.cpu(),
+                                          s.homography.cpu())
+    (f32_cpu, _), cpu_s = sync_time(lambda: gvm.verify_matches_batch(
+        cpu_samples, *cpu_args, **cpu_kwargs))
+    (f64_card, _), card64_s = sync_time(lambda: gvm.verify_matches_batch(
+        s, *args, **kwargs, dtype=torch.float64))
+    (f64_cpu, _), cpu64_s = sync_time(lambda: gvm.verify_matches_batch(
+        cpu_samples, *cpu_args, **cpu_kwargs, dtype=torch.float64))
+    f64 = _agreement(f64_card, f64_cpu, pairs)
+    check(10 * len(f64["differing"]) <= len(pairs),
+          f"{what}: card and CPU disagree in float64: {f64}")
+    pose = _pose_summary([_pose_errors(info, cams[i], cams[j])
+                          for (i, j), info in zip(pairs, f64_card)
+                          if info is not None])
+    _check_pose(pose, f"{what}, float64")
+    return dict(f32_card_vs_cpu=_agreement(call["out"][0], f32_cpu, pairs),
+                f64_card_vs_cpu=f64, f64_pose=pose, cpu_f32_s=cpu_s,
+                card_f64_s=card64_s, cpu_f64_s=cpu64_s)
+
+
+def _five_point_probe(P, Hn):
+    """Host-inclusive wall ms (median of 5, synchronized) of the
+    five-point stage at the chunk's shape, and of its factorizations
+    against PyTorch's own: torch.linalg.qr's complete Q (hazard: its
+    CUDA path builds Q matrix by matrix) against the batched
+    Householder nullspace, eigh of the homography's 9x9 normal
+    matrices, svd of the 3x3 essentials."""
+    g = torch.Generator("cuda").manual_seed(0)
+    x1 = torch.rand((P, Hn, 5, 2), generator=g, device="cuda") - 0.5
+    x2 = x1 + 0.05 * torch.rand((P, Hn, 5, 2), generator=g, device="cuda")
+    A = torch.rand((P * Hn, 9, 5), generator=g, device="cuda")
+    S = torch.rand((P * Hn, 9, 9), generator=g, device="cuda")
+    S = S @ S.transpose(1, 2)
+    E = torch.rand((P, 3, 3), generator=g, device="cuda")
+
+    def wall(fn):
+        fn()
+        out = []
+        for _ in range(5):
+            out.append(sync_time(fn)[1] * 1e3)
+        return statistics.median(out)
+    return dict(
+        shape=[P, Hn], five_point_ms=wall(
+            lambda: fpm.five_point_essential(x1, x2)),
+        householder_ms=wall(lambda: fpm._householder_nullspace(A)),
+        torch_qr_complete_ms=wall(
+            lambda: torch.linalg.qr(A, mode="complete")),
+        eigh_9x9_ms=wall(lambda: torch.linalg.eigh(S)),
+        svd_3x3_ms=wall(lambda: torch.linalg.svd(E)))
+
+
+def phase_frontend_verify(scene):
+    """The front end with geometric verification on, as FeatureMatcher
+    runs it by default: the 28 pairs of `frontend` matched and verified
+    in one chunk (5-point RANSAC with 256 hypotheses, homography count,
+    two-view BA, triangulation gates), then again with guided
+    matching."""
+    names, arrays, priors = scene["names"], scene["arrays"], scene["priors"]
+
+    def match_all(opts):
+        db = features_db_from_arrays(arrays, priors)
+        fm = FeatureMatcher(opts, db, device="cuda")
+        fm.add_images(names)
+        return fm.match_images(), db
+
+    results, verified = {}, {}
+    for run, opts in (("default", FeatureMatcherOptions()),
+                      ("guided", FeatureMatcherOptions(
+                          guided_matching=True))):
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases still hold (the timer's 1 GiB flush buffer)
+        held = torch.cuda.memory_allocated() / 2**30
+        reset_dispatch_counts()
+        with _VerifySpy() as spy:
+            (n_pairs, db), first_s = sync_time(lambda: match_all(opts))
+        counts = dispatch_counts()
+        check(counts == {"top2_match": 2},
+              f"frontend_verify {run}: launches {counts}, expected 2 "
+              "top2_match")
+        check(len(spy.calls) == 1, f"frontend_verify {run}: "
+              f"{len(spy.calls)} verify_matches_batch calls per chunk")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        pairs = _pair_records(db, scene, f"frontend_verify {run}")
+        check(n_pairs == len(pairs), f"frontend_verify {run}: stored count")
+        cpu = _card_vs_cpu(spy.calls[0], scene, f"frontend_verify {run}")
+
+        warm, verify_warm = [], []
+        for _ in range(3):
+            reset_dispatch_counts()
+            with _VerifySpy() as spy:
+                _, sec = sync_time(lambda: match_all(opts))
+            check(dispatch_counts() == {"top2_match": 2},
+                  "frontend_verify: top2_match launches per match_images "
+                  "!= 2")
+            warm.append(sec)
+            verify_warm.append(spy.calls[0]["seconds"])
+        _, prof = _profile(lambda: match_all(opts), ("match.", "verify."))
+        emit("frontend_verify_profile", run=run, **prof)
+        if run == "guided":
+            for p, r in pairs.items():
+                base = verified.get(p, 0)
+                i, j = map(int, p.split("-"))
+                if j == i + 1:
+                    check(r["verified"] >= base,
+                          f"frontend_verify guided: pair {p} verified "
+                          f"{r['verified']} < {base} without guidance")
+        verified.update({p: r["verified"] for p, r in pairs.items()})
+        putative = spy.calls[0]["args"][3].sum(axis=1)
+        results[run] = dict(
+            pairs_verified=n_pairs, pairs_putative=len(putative),
+            putative_max=int(putative.max()),
+            ms_per_chunk=statistics.median(warm) * 1e3,
+            verify_ms=statistics.median(verify_warm) * 1e3,
+            warm_s=warm, verify_warm_s=verify_warm, first_call_s=first_s,
+            card_vs_cpu=cpu, peak_device_gib=peak,
+            peak_above_held_gib=peak - held, launches=counts,
+            pairs=pairs, pose=_pose_summary([
+                (r["rotation_err_deg"], r["direction_err_deg"])
+                for r in pairs.values()]),
+            adjacent_rotation_err_max_deg=max(
+                pairs[f"{i}-{i + 1}"]["rotation_err_deg"]
+                for i in range(N_VIEWS - 1)),
+            adjacent_direction_err_max_deg=max(
+                pairs[f"{i}-{i + 1}"]["direction_err_deg"]
+                for i in range(N_VIEWS - 1)),
+            adjacent_epipolar_share_min=min(
+                pairs[f"{i}-{i + 1}"]["epipolar_share_2px"]
+                for i in range(N_VIEWS - 1)))
+        emit("frontend_verify", run=run, **results[run])
+        _check_pose(results[run]["pose"], f"frontend_verify {run}")
+        del db
+        torch.cuda.empty_cache()
+    emit("frontend_verify_five_point",
+         **_five_point_probe(len(names) * (len(names) - 1) // 2,
+                             FeatureMatcherOptions().geometric_verification
+                             .num_hypotheses))
+    return results
 
 
 # ----------------------------------------------------------------- main
@@ -1080,7 +1390,8 @@ def main():
     phase_ba_entry()
     phase_ba_dense(c_pcg)
     phase_ba_f64()
-    n_batched, n_pair = phase_frontend()
+    n_batched, n_pair, scene = phase_frontend()
+    phase_frontend_verify(scene)
 
     summary = []
     for (name, layout), replaces in REPLACES.items():

@@ -1,5 +1,6 @@
 """The port's FeatureMatcher and features-and-matches database against
-the JAX package's on the CPU, verification off.
+the JAX package's on the CPU, verification off (tests/
+test_torch_verification.py holds the verification against JAX).
 
 Both matchers run their brute force on the CPU (JAX's XLA path, the
 port's torch path) on the same features, handed to the port through
@@ -13,6 +14,7 @@ import dataclasses
 import numpy as np
 import pytest
 from scipy import ndimage
+from scipy.spatial.transform import Rotation
 
 from theiasfm_tpu import matching as jm
 from theiasfm_tpu.image import sift as jsift
@@ -113,20 +115,65 @@ def test_options_fields_match_jax():
     tf = {f.name: f.default for f in dataclasses.fields(
         tm.FeatureMatcherOptions)}
     assert list(tf) == list(jf)
-    jf.pop("geometric_verification")
-    assert tf.pop("geometric_verification") is None
+    assert dataclasses.asdict(tf.pop("geometric_verification")) == \
+        dataclasses.asdict(jf.pop("geometric_verification"))
     assert tf == jf
+
+
+def _two_view_features(seed=0, n=150):
+    """Two calibrated views (focal 600, principal point (320, 240)) of
+    n points at depth 4-10, with one shared 64-d descriptor per point
+    (a little noise apart) and 30 extra unmatched features per view."""
+    rng = np.random.default_rng(seed)
+    aa = np.array([0.05, -0.1, 0.04])
+    R = Rotation.from_rotvec(aa).as_matrix()
+    t = np.array([1.0, 0.1, -0.05])
+    pts = rng.uniform([-2, -2, 4], [2, 2, 10], size=(n, 3))
+    p2 = pts @ R.T + t
+    desc = rng.normal(size=(n + 60, 64)).astype(np.float32)
+    out = {}
+    for name, p, extra in (("img0", pts, desc[n:n + 30]),
+                           ("img1", p2, desc[n + 30:])):
+        pix = p[:, :2] / p[:, 2:] * 600.0 + (320.0, 240.0)
+        pix = np.concatenate([pix + rng.normal(scale=0.3, size=pix.shape),
+                              rng.uniform(0, 640, (30, 2))])
+        d = np.concatenate([desc[:n], extra]) + 0.05 * rng.normal(
+            size=(n + 30, 64)).astype(np.float32)
+        kps = np.concatenate([pix, np.ones((n + 30, 2))], -1)
+        out[name] = (kps, d / np.linalg.norm(d, axis=-1, keepdims=True))
+    return out, aa
 
 
 @pytest.mark.parametrize("kw", [
     {},   # the default verifies geometry
     dict(OFF, matcher="cascade_hashing"),
-    dict(OFF, guided_matching=True),
+    dict(guided_matching=True),
 ], ids=["verification", "cascade_hashing", "guided"])
 def test_unported_options_raise(kw):
-    db = features_db_from_arrays({})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.FeatureMatcher(tm.FeatureMatcherOptions(**kw), db, device="cpu")
+    """Cascade hashing still raises. Verification (the default) and
+    guided matching are ported: the matcher verifies a synthetic pair
+    on the CPU and stores its relative pose."""
+    if kw.get("matcher") == "cascade_hashing":
+        with pytest.raises(NotImplementedError, match="ROADMAP.*item 15"):
+            tm.FeatureMatcher(tm.FeatureMatcherOptions(**kw),
+                              features_db_from_arrays({}), device="cpu")
+        return
+    features, aa = _two_view_features()
+    prior = dict(image_width=640, image_height=480, focal_length=600.0,
+                 principal_point=(320.0, 240.0))
+    db = features_db_from_arrays(features, {n: prior for n in features})
+    fm = tm.FeatureMatcher(tm.FeatureMatcherOptions(**kw), db, device="cpu")
+    fm.add_images(sorted(features))
+    assert fm.match_images() == 1
+    m = db.get_match("img0", "img1")
+    info = m.twoview_info
+    assert info.num_verified_matches == len(m.correspondences) >= 130
+    assert 0 < info.num_homography_inliers <= 180
+    assert info.visibility_score > info.num_verified_matches
+    err = np.degrees(np.linalg.norm(
+        (Rotation.from_rotvec(info.rotation_2).inv() *
+         Rotation.from_rotvec(aa)).as_rotvec()))
+    assert err < 0.5, err
 
 
 def _fill(db, features, prior):

@@ -106,10 +106,10 @@ def test_frontend_entry_points_raise_without_card():
         extract_sift(img)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         extract_sift_batch([img, img])
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        FeatureMatcher(FeatureMatcherOptions(
-            perform_geometric_verification=False),
-            features_db_from_arrays({}))
+    for opts in (FeatureMatcherOptions(),
+                 FeatureMatcherOptions(perform_geometric_verification=False)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            FeatureMatcher(opts, features_db_from_arrays({}))
     d = torch.zeros((1, 4, 8), device="meta")
     with pytest.raises(RuntimeError, match="got meta"):
         top2(d, d, torch.zeros((1, 4), device="meta"))
@@ -142,6 +142,48 @@ def test_frontend_runs_without_jax():
             min_num_feature_matches=1), db, device="cpu")
         fm.add_images(["v0", "v1"])
         assert fm.match_images() == 1
+        assert _kernels.build.cache_info().currsize == 0
+        assert not any(m == "jax" or m.startswith(("jax.", "theiasfm_tpu."))
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_verification_runs_without_jax():
+    """With jax and theiasfm_tpu unimportable: the batched geometric
+    verification and the single-pair path on a synthetic pair on the
+    CPU, from a generator; nothing is built or loaded."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "theiasfm_tpu"):
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        from theiasfm_tpu_torch import _kernels
+        from theiasfm_tpu_torch.sfm.pipeline import (
+            GeometricVerificationOptions, TwoViewInfoOptions,
+            verify_matches, verify_matches_batch)
+        rng = np.random.default_rng(0)
+        pts = rng.uniform([-2, -2, 4], [2, 2, 10], size=(120, 3))
+        p2 = pts + np.array([1.0, 0.1, 0.0])
+        pix1 = pts[:, :2] / pts[:, 2:] * 600 + 320
+        pix2 = p2[:, :2] / p2[:, 2:] * 600 + 320
+        o = GeometricVerificationOptions(
+            estimate_twoview_info=TwoViewInfoOptions(num_hypotheses=32))
+        g = torch.Generator().manual_seed(0)
+        infos, corrs = verify_matches_batch(
+            g, pix1[None], pix2[None], np.ones((1, 120), bool),
+            np.full(1, 600.0), np.full(1, 600.0), np.full((1, 2), 320.0),
+            np.full((1, 2), 320.0), np.zeros((1, 2, 2)), o)
+        n = infos[0].num_verified_matches
+        assert n >= 110 and len(corrs[0]) == n
+        info, _ = verify_matches(g, pix1, pix2, 600.0, 600.0, (320, 320),
+                                 (320, 320), o)
+        assert info.num_verified_matches >= 110
         assert _kernels.build.cache_info().currsize == 0
         assert not any(m == "jax" or m.startswith(("jax.", "theiasfm_tpu."))
                        for m, v in sys.modules.items() if v is not None)

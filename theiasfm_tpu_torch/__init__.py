@@ -14,9 +14,16 @@ Ported so far:
 * the feature front end: synthetic views and image loading (`image/`),
   SIFT (`image/sift.py`, plain PyTorch), the brute-force and fused top-2
   matchers, the features-and-matches database and the feature matcher
-  without geometric verification (`matching/`). The fused matcher's
-  running top-2 runs as a hand-written CUDA kernel
-  (`csrc/top2_match.cu`);
+  (`matching/`). The fused matcher's running top-2 runs as a
+  hand-written CUDA kernel (`csrc/top2_match.cu`);
+* geometric verification, which the feature matcher runs by default:
+  the batched RANSAC engine (`solvers/`), the Aberth root finder
+  (`math/polynomial.py`), the two-view minimal solvers (`sfm/pose/`:
+  five-point, eight-point, homography), the two-view estimators
+  (`sfm/estimators/`), triangulation, the visibility pyramid, guided
+  matching (`matching/guided_matcher.py`) and the batched and
+  single-pair verification (`sfm/pipeline/twoview.py`,
+  `geometric_verification.py`), all in plain PyTorch;
 * the rest of the bundle adjuster: the normal-equation blocks sweep as
   a hand-written CUDA kernel (`csrc/ba_blocks.cu`, `pallas_blocks`), the
   dense-Schur solver, the float64 polish, the reconstruction data model
@@ -29,7 +36,8 @@ points that build their own tensors (`bench_problem.make_problem`,
 `convert.from_jax_arrays`, `image.extract_sift[_batch]`,
 `matching.FeatureMatcher`, `Reconstruction.to_ba_problem` and the
 `sfm.ba` entry points) default to `device="cuda"` and raise when no card
-is present.
+is present; the verification runs on the device of the torch.Generator
+or the sample indices it is given.
 """
 
 __version__ = "0.3.0"

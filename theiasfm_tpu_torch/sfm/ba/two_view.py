@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ...math import rotation as rot
+from ...utils import linalg
 
 
 def _gauss_newton(residual, p, args, iters, damping):
@@ -28,7 +29,9 @@ def _gauss_newton(residual, p, args, iters, damping):
         r = res_b(p, *args)                                 # (B, N)
         J = jac_b(p, *args)                                 # (B, N, D)
         Jt = J.transpose(1, 2)
-        delta = torch.linalg.solve(Jt @ J + eye, (Jt @ r[..., None]))[..., 0]
+        # a singular system gives inf/NaN, which `better` rejects (on
+        # the card torch.linalg.solve would raise)
+        delta = linalg.solve(Jt @ J + eye, (Jt @ r[..., None]))[..., 0]
         p_new = p - delta
         better = (torch.sum(res_b(p_new, *args) ** 2, dim=-1) <
                   torch.sum(r ** 2, dim=-1))

@@ -1,0 +1,9 @@
+"""Robust estimators (port of theiasfm_tpu/sfm/estimators/). Exports
+what has landed: the two-view estimators. The absolute-pose,
+uncalibrated and transform estimators wait for their slices."""
+from .twoview_estimators import (  # noqa: F401
+    estimate_relative_pose, estimate_fundamental, estimate_homography,
+    estimate_radial_distortion_homography,
+    relative_pose_spec, fundamental_spec, homography_spec,
+    radial_distortion_homography_spec,
+)
