@@ -65,6 +65,7 @@ from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as gvm
+from theiasfm_tpu_torch.sfm.pipeline import twoview as tvm
 from theiasfm_tpu_torch.sfm.pose import five_point as fpm
 from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
 from theiasfm_tpu_torch.utils import (dispatch_counts, next_bucket,
@@ -1126,14 +1127,27 @@ def _pair_records(db, scene, what):
     return rec
 
 
-def _check_pose(pose, what):
-    """At least a quarter of the verified pairs within 1 degree of the
-    true rotation and 3 degrees of the true position direction. (Not
-    every adjacent pair: on the same putative matches JAX's own
-    verification misses that bound too, in float32 and float64, on the
-    pairs where a planar twin of the essential matrix explains as many
-    matches as the true one; PERF.md, PR 6.)"""
-    check(4 * pose["within_1deg_3deg"] >= pose["pairs"],
+# Bounds of frontend_verify, from tests/frontend_verify_reference.py on
+# the CPU over this scene's putative matches (seeds 0-9, float32 and
+# float64): JAX's own verification puts 10-15 of the 28 pairs within 1
+# and 3 degrees of the true pose (guided: 8-14), and no adjacent pair in
+# every run (a planar twin of the essential matrix explains about as
+# many matches as the true one on the nearly planar pairs). With the
+# same sample indices, float32 rounding alone makes the port's and
+# JAX's verdicts differ on 8-15 of the 28 pairs (the RANSAC stage alone
+# on 5-15), float64 on 0-2 (guided 0-4, the guided matcher's top-k
+# ties); the card and the CPU split 8 in float32 and 1 in float64
+# (PERF.md, the frontend_verify cell).
+POSE_PAIRS_MIN = {"default": 10, "guided": 8}
+DIFFERING_MAX = {torch.float32: 16, torch.float64: 2}
+
+
+def _check_pose(pose, run, what):
+    """At least POSE_PAIRS_MIN[run] of the verified pairs within 1
+    degree of the true rotation and 3 degrees of the true position
+    direction: the least JAX's verification reaches on the same putative
+    matches with the same options."""
+    check(pose["within_1deg_3deg"] >= POSE_PAIRS_MIN[run],
           f"{what}: poses against the ground truth: {pose}")
 
 
@@ -1211,18 +1225,16 @@ def _agreement(a_infos, b_infos, pairs):
     return out
 
 
-def _card_vs_cpu(call, scene, what):
+def _card_vs_cpu(call, scene, run):
     """The chunk's verify_matches_batch once more with the samples the
-    card drew: on the CPU in float32 against the card's float32 run,
-    and on the card and on the CPU in float64. Reported per pair: the
-    acceptance, the verified counts (within 1% or 2) and the rotations
-    (within 0.05 degrees). Where two hypotheses explain a pair's matches
-    almost equally, rounding picks either (float32 often; float64
-    rarely, since the five-point solver's solution set itself depends on
-    rounding for ill-conditioned samples, tests/test_torch_pose.py), so
-    the gate allows 10% of the pairs to differ in float64. The float64
-    poses are held to the ground truth as the float32 ones are
-    (_check_pose)."""
+    card drew, on the CPU in float32 and on both in float64, and its
+    RANSAC stage alone (estimate_twoview_info_batch) on both in each
+    type: which stage splits. Per pair: the acceptance, the verified
+    counts (within 1% or 2) and the rotations (within 0.05 degrees);
+    at most DIFFERING_MAX pairs may differ. Every adjacent pair is
+    accepted by the CPU too, and the float64 poses are held to the
+    ground truth as the float32 ones are (_check_pose)."""
+    what = f"frontend_verify {run}"
     names, cams = scene["names"], scene["cams"]
     pairs = [(i, j) for i in range(len(names)) for j in range(i + 1,
                                                               len(names))]
@@ -1232,55 +1244,54 @@ def _card_vs_cpu(call, scene, what):
     args, kwargs = call["args"][1:], call["kwargs"]
     cpu_args = [_to_cpu(a) for a in args]
     cpu_kwargs = {k: _to_cpu(v) for k, v in kwargs.items()}
+    cpu_kwargs["device"] = "cpu"
     cpu_samples = gvm.VerificationSamples(s.essential.cpu(),
                                           s.homography.cpu())
-    (f32_cpu, _), cpu_s = sync_time(lambda: gvm.verify_matches_batch(
-        cpu_samples, *cpu_args, **cpu_kwargs))
-    (f64_card, _), card64_s = sync_time(lambda: gvm.verify_matches_batch(
-        s, *args, **kwargs, dtype=torch.float64))
-    (f64_cpu, _), cpu64_s = sync_time(lambda: gvm.verify_matches_batch(
-        cpu_samples, *cpu_args, **cpu_kwargs, dtype=torch.float64))
-    f64 = _agreement(f64_card, f64_cpu, pairs)
-    check(10 * len(f64["differing"]) <= len(pairs),
-          f"{what}: card and CPU disagree in float64: {f64}")
-    pose = _pose_summary([_pose_errors(info, cams[i], cams[j])
-                          for (i, j), info in zip(pairs, f64_card)
-                          if info is not None])
-    _check_pose(pose, f"{what}, float64")
-    return dict(f32_card_vs_cpu=_agreement(call["out"][0], f32_cpu, pairs),
-                f64_card_vs_cpu=f64, f64_pose=pose, cpu_f32_s=cpu_s,
-                card_f64_s=card64_s, cpu_f64_s=cpu64_s)
+    gv = args[8] if len(args) > 8 else kwargs.get("opts")
+    ropts = (gv or gvm.GeometricVerificationOptions()).estimate_twoview_info
+    out, runs = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        tag = "f32" if dtype == torch.float32 else "f64"
+        if dtype == torch.float32:
+            card = call["out"][0]
+        else:
+            (card, _), out["card_f64_s"] = sync_time(
+                lambda: gvm.verify_matches_batch(s, *args, **kwargs,
+                                                 dtype=dtype))
+        (cpu, _), out[f"cpu_{tag}_s"] = sync_time(
+            lambda: gvm.verify_matches_batch(cpu_samples, *cpu_args,
+                                             **cpu_kwargs, dtype=dtype))
+        ransac = [tvm.estimate_twoview_info_batch(
+            e, *a[:7], ropts, dtype=dtype, device=dev)[0]
+            for e, a, dev in ((s.essential, args, kwargs["device"]),
+                              (cpu_samples.essential, cpu_args, "cpu"))]
+        out[f"{tag}_card_vs_cpu"] = _agreement(card, cpu, pairs)
+        out[f"{tag}_ransac_card_vs_cpu"] = _agreement(*ransac, pairs)
+        runs[dtype] = card
+        for key in (f"{tag}_card_vs_cpu", f"{tag}_ransac_card_vs_cpu"):
+            check(len(out[key]["differing"]) <= DIFFERING_MAX[dtype],
+                  f"{what}: card and CPU disagree ({key}): {out[key]}")
+        for (i, j), info in zip(pairs, cpu):
+            check(j != i + 1 or info is not None,
+                  f"{what}: the CPU's {tag} run rejects pair {i}-{j}")
+    out["f64_pose"] = _pose_summary([
+        _pose_errors(info, cams[i], cams[j])
+        for (i, j), info in zip(pairs, runs[torch.float64])
+        if info is not None])
+    _check_pose(out["f64_pose"], run, f"{what}, float64")
+    return out
 
 
-def _five_point_probe(P, Hn):
+def _five_point_ms(P, Hn):
     """Host-inclusive wall ms (median of 5, synchronized) of the
-    five-point stage at the chunk's shape, and of its factorizations
-    against PyTorch's own: torch.linalg.qr's complete Q (hazard: its
-    CUDA path builds Q matrix by matrix) against the batched
-    Householder nullspace, eigh of the homography's 9x9 normal
-    matrices, svd of the 3x3 essentials."""
+    five-point stage at the chunk's shape (P pairs x Hn samples)."""
     g = torch.Generator("cuda").manual_seed(0)
     x1 = torch.rand((P, Hn, 5, 2), generator=g, device="cuda") - 0.5
     x2 = x1 + 0.05 * torch.rand((P, Hn, 5, 2), generator=g, device="cuda")
-    A = torch.rand((P * Hn, 9, 5), generator=g, device="cuda")
-    S = torch.rand((P * Hn, 9, 9), generator=g, device="cuda")
-    S = S @ S.transpose(1, 2)
-    E = torch.rand((P, 3, 3), generator=g, device="cuda")
-
-    def wall(fn):
-        fn()
-        out = []
-        for _ in range(5):
-            out.append(sync_time(fn)[1] * 1e3)
-        return statistics.median(out)
-    return dict(
-        shape=[P, Hn], five_point_ms=wall(
-            lambda: fpm.five_point_essential(x1, x2)),
-        householder_ms=wall(lambda: fpm._householder_nullspace(A)),
-        torch_qr_complete_ms=wall(
-            lambda: torch.linalg.qr(A, mode="complete")),
-        eigh_9x9_ms=wall(lambda: torch.linalg.eigh(S)),
-        svd_3x3_ms=wall(lambda: torch.linalg.svd(E)))
+    fpm.five_point_essential(x1, x2)
+    return statistics.median(sync_time(
+        lambda: fpm.five_point_essential(x1, x2))[1] * 1e3
+        for _ in range(5))
 
 
 def phase_frontend_verify(scene):
@@ -1316,7 +1327,7 @@ def phase_frontend_verify(scene):
         peak = torch.cuda.max_memory_allocated() / 2**30
         pairs = _pair_records(db, scene, f"frontend_verify {run}")
         check(n_pairs == len(pairs), f"frontend_verify {run}: stored count")
-        cpu = _card_vs_cpu(spy.calls[0], scene, f"frontend_verify {run}")
+        cpu = _card_vs_cpu(spy.calls[0], scene, run)
 
         warm, verify_warm = [], []
         for _ in range(3):
@@ -1361,13 +1372,13 @@ def phase_frontend_verify(scene):
                 pairs[f"{i}-{i + 1}"]["epipolar_share_2px"]
                 for i in range(N_VIEWS - 1)))
         emit("frontend_verify", run=run, **results[run])
-        _check_pose(results[run]["pose"], f"frontend_verify {run}")
+        _check_pose(results[run]["pose"], run, f"frontend_verify {run}")
         del db
         torch.cuda.empty_cache()
-    emit("frontend_verify_five_point",
-         **_five_point_probe(len(names) * (len(names) - 1) // 2,
-                             FeatureMatcherOptions().geometric_verification
-                             .num_hypotheses))
+    P = len(names) * (len(names) - 1) // 2
+    Hn = FeatureMatcherOptions().geometric_verification.num_hypotheses
+    emit("frontend_verify_five_point", shape=[P, Hn],
+         five_point_ms=_five_point_ms(P, Hn))
     return results
 
 

@@ -178,11 +178,11 @@ def test_verification_runs_without_jax():
         infos, corrs = verify_matches_batch(
             g, pix1[None], pix2[None], np.ones((1, 120), bool),
             np.full(1, 600.0), np.full(1, 600.0), np.full((1, 2), 320.0),
-            np.full((1, 2), 320.0), np.zeros((1, 2, 2)), o)
+            np.full((1, 2), 320.0), np.zeros((1, 2, 2)), o, device="cpu")
         n = infos[0].num_verified_matches
         assert n >= 110 and len(corrs[0]) == n
         info, _ = verify_matches(g, pix1, pix2, 600.0, 600.0, (320, 320),
-                                 (320, 320), o)
+                                 (320, 320), o, device="cpu")
         assert info.num_verified_matches >= 110
         assert _kernels.build.cache_info().currsize == 0
         assert not any(m == "jax" or m.startswith(("jax.", "theiasfm_tpu."))
@@ -193,6 +193,36 @@ def test_verification_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_verification_entry_points_raise_without_card():
+    """The verification's entry points default to the card and refuse
+    to fall back to the CPU; samples on another device than the call's
+    raise."""
+    import numpy as np
+    from theiasfm_tpu_torch.sfm.pipeline import (
+        TwoViewInfoOptions, count_homography_inliers, estimate_twoview_info,
+        estimate_twoview_info_batch, verify_matches, verify_matches_batch)
+    pix = np.zeros((1, 64, 2))
+    one, pp = np.ones(1), np.zeros((1, 2))
+    calls = [
+        lambda g, **k: verify_matches_batch(
+            g, pix, pix, np.ones((1, 64), bool), one, one, pp, pp,
+            np.zeros((1, 2, 2)), **k),
+        lambda g, **k: verify_matches(g, pix[0], pix[0], 1.0, 1.0,
+                                      (0, 0), (0, 0), **k),
+        lambda g, **k: estimate_twoview_info(g, pix[0], pix[0], 1.0, 1.0,
+                                             TwoViewInfoOptions(), **k),
+        lambda g, **k: estimate_twoview_info_batch(
+            g, pix, pix, np.ones((1, 64), bool), one, one, pp, pp,
+            TwoViewInfoOptions(), **k),
+        lambda g, **k: count_homography_inliers(g, pix[0], pix[0], 2.25,
+                                                **k)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call(torch.Generator())
+        with pytest.raises(ValueError, match="samples on cpu"):
+            call(torch.Generator(), device="meta")
 
 
 def test_reconstruction_entry_points_raise_without_card():

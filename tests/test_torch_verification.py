@@ -23,7 +23,8 @@ from theiasfm_tpu.sfm.pipeline import geometric_verification as jgv
 from theiasfm_tpu_torch.matching import guided_matcher as tgm
 from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as tgv
 from theiasfm_tpu_torch.sfm.pipeline import twoview as ttv
-from torch_verification_cases import (F64, H, assert_same_infos, batch, jax_batch_samples)
+from torch_verification_cases import (F64, H, assert_same_infos, batch,
+                                      jax_batch_samples)
 
 
 @pytest.mark.parametrize("ba", [True, False], ids=["ba", "no_ba"])
@@ -44,14 +45,14 @@ def test_verify_matches_batch_matches_jax(ba):
                                       pps, sizes, jo)
     ti, tc = tgv.verify_matches_batch(jax_batch_samples(key, mask), pix1,
                                       pix2, mask, f, f, pps, pps, sizes,
-                                      to, dtype=F64)
+                                      to, dtype=F64, device="cpu")
     assert ti[0] is not None and ti[1] is not None
     assert ti[2] is None and ti[3] is None
     assert_same_infos(ji, ti, jc, tc)
     # float32 from the port's own generator: no raise, the scenes pass
     ti32, _ = tgv.verify_matches_batch(torch.Generator().manual_seed(0),
                                        pix1, pix2, mask, f, f, pps, pps,
-                                       sizes, to)
+                                       sizes, to, device="cpu")
     assert [i is None for i in ti32] == [False, False, True, True]
 
 

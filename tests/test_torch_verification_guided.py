@@ -16,7 +16,8 @@ from theiasfm_tpu.sfm.pipeline import twoview as jtv
 from theiasfm_tpu.solvers.ransac import random_samples as jrs
 from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as tgv
 from theiasfm_tpu_torch.sfm.pipeline import twoview as ttv
-from torch_verification_cases import (F64, H, PP, assert_same_infos, batch, jax_batch_samples, pair)
+from torch_verification_cases import (F64, H, PP, assert_same_infos, batch,
+                                      jax_batch_samples, pair)
 
 
 def test_verify_matches_batch_guided_matches_jax():
@@ -44,7 +45,7 @@ def test_verify_matches_batch_guided_matches_jax():
         jax_batch_samples(key, args[2]), *args,
         tgv.GeometricVerificationOptions(
             estimate_twoview_info=ttv.TwoViewInfoOptions(num_hypotheses=H),
-            guided_matching=True), **kw, dtype=F64)
+            guided_matching=True), **kw, dtype=F64, device="cpu")
     assert ti[0].num_verified_matches >= n_put
     assert_same_infos(ji, ti, jc, tc)
 
@@ -77,16 +78,17 @@ def test_verify_matches_single_pair_matches_jax(guided):
     ti, tc = tgv.verify_matches(samples, pix1, pix2, 600.0, 600.0, PP, PP,
                                 tgv.GeometricVerificationOptions(**opts),
                                 image_size1=size, image_size2=size,
-                                dtype=F64, **kw)
+                                dtype=F64, device="cpu", **kw)
     assert ti is not None
     assert_same_infos([ji], [ti], [jc], [tc])
     assert tgv.count_homography_inliers(
         samples.homography, pix1, pix2, 2.25, size, size, H,
-        dtype=F64) == ji.num_homography_inliers
+        dtype=F64, device="cpu") == ji.num_homography_inliers
     # a generator runs it end to end in float32
     ti32, _ = tgv.verify_matches(torch.Generator().manual_seed(0), pix1,
                                  pix2, 600.0, 600.0, PP, PP,
-                                 tgv.GeometricVerificationOptions(**opts))
+                                 tgv.GeometricVerificationOptions(**opts),
+                                 device="cpu")
     assert ti32 is not None and ti32.num_verified_matches >= 140
 
 
@@ -103,7 +105,7 @@ def test_estimate_twoview_info_matches_jax():
         jtv.TwoViewInfoOptions(**opts), pp1=PP, pp2=PP)
     ti, tinl = ttv.estimate_twoview_info(
         idx, pix1, pix2, 600.0, 600.0, ttv.TwoViewInfoOptions(**opts),
-        pp1=PP, pp2=PP, dtype=F64)
+        pp1=PP, pp2=PP, dtype=F64, device="cpu")
     np.testing.assert_array_equal(tinl, np.asarray(jinl))
     assert ti.num_verified_matches == ji.num_verified_matches >= 140
     np.testing.assert_allclose(ti.rotation_2, ji.rotation_2, atol=1e-6)
@@ -118,7 +120,7 @@ def test_estimate_twoview_info_matches_jax():
         jtv.TwoViewInfoOptions(**opts))
     tb, tbin = ttv.estimate_twoview_info_batch(
         idxb, pix1b, pix2b, mask, f, f, pps, pps,
-        ttv.TwoViewInfoOptions(**opts), dtype=F64)
+        ttv.TwoViewInfoOptions(**opts), dtype=F64, device="cpu")
     np.testing.assert_array_equal(tbin, np.asarray(jbin))
     assert [i is None for i in tb] == [i is None for i in jb]
     for a, b in zip(jb, tb):

@@ -34,10 +34,11 @@ The kernels are built at first use by `_kernels.py`. Entry points run
 on the device of the tensors they are given; the constructors and entry
 points that build their own tensors (`bench_problem.make_problem`,
 `convert.from_jax_arrays`, `image.extract_sift[_batch]`,
-`matching.FeatureMatcher`, `Reconstruction.to_ba_problem` and the
-`sfm.ba` entry points) default to `device="cuda"` and raise when no card
-is present; the verification runs on the device of the torch.Generator
-or the sample indices it is given.
+`matching.FeatureMatcher`, `Reconstruction.to_ba_problem`, the
+`sfm.ba` entry points and the verification's entry points in
+`sfm.pipeline`) default to `device="cuda"` and raise when no card is
+present; the verification also raises when its torch.Generator or
+sample indices lie on another device.
 """
 
 __version__ = "0.3.0"

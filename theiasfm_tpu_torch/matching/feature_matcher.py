@@ -229,7 +229,7 @@ class FeatureMatcher:
                 fmask2=m2[sel])
         infos, corrs = verify_matches_batch(
             self._generator, pix1, pix2, pmask, f1s, f2s, pp1s, pp2s,
-            sizes, gv, **guided_kw)
+            sizes, gv, **guided_kw, device=self.device)
         return [(a, b, infos[j], corrs[j])
                 for j, (_, a, b, _) in enumerate(putative)
                 if infos[j] is not None]

@@ -9,7 +9,9 @@ ref: src/theia/sfm/two_view_match_geometric_verification.{h,cc}:53-120:
   5. final reprojection-error filter.
 
 `verify_matches_batch` verifies a chunk's pairs in one batched
-computation on the device of its samples: a leading pair axis through
+computation on `device` (the card unless the caller passes "cpu"), in
+full float32 there (TF32 would move Sampson residuals across their
+threshold and flip inlier decisions): a leading pair axis through
 every stage, no per-pair loop on the device side, one read-back at the
 end. Its stages run under the profiler ranges verify.ransac_e,
 verify.ransac_h, verify.guided, verify.ba, verify.triangulate and
@@ -17,7 +19,8 @@ verify.store (the read-back and the host-side TwoViewInfo), which
 chip_smoke.py reads for its time breakdown.
 
 Where the JAX module takes a PRNG key these take `samples`: a
-torch.Generator, or the sample indices as VerificationSamples.
+torch.Generator, or the sample indices as VerificationSamples, on
+`device`.
 """
 from __future__ import annotations
 
@@ -32,7 +35,7 @@ from ...math import rotation as rot
 from ...matching.guided_matcher import guided_epipolar_matching
 from ...solvers import RansacOptions, random_samples, ransac_batch
 from ...utils import next_bucket
-from ...utils.precision import geometry_precision
+from ...utils.device import full_f32
 from .. import triangulation as tri
 from ..ba.two_view import bundle_adjust_two_views_angular
 from ..estimators import estimate_homography
@@ -43,7 +46,7 @@ from ..pose.twoview_utils import (essential_from_rt,
 from ..view_graph import TwoViewInfo
 from ..visibility_pyramid import visibility_score_of_inliers
 from .twoview import (TwoViewInfoOptions, estimate_twoview_info,
-                      samples_device, scaled_residuals)
+                      samples_on, scaled_residuals)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -93,7 +96,7 @@ def count_homography_inliers(samples, pix1, pix2,
                              max_sampson_error_pixels: float,
                              image_size1=None, image_size2=None,
                              num_hypotheses: int = 256,
-                             dtype=torch.float32) -> int:
+                             dtype=torch.float32, device="cuda") -> int:
     """4-pt homography RANSAC over putative matches; returns the inlier
     count that flags rotation-only / planar-degenerate pairs.
 
@@ -101,8 +104,8 @@ def count_homography_inliers(samples, pix1, pix2,
     (CountHomographyInliers) with the resolution-scaled threshold of
     reconstruction_estimator_utils.cc:95-106 (max_dim / 1024). samples:
     a torch.Generator or (H, 4) indices into the matches padded to a
-    bucket of 64."""
-    dev = samples_device(samples)
+    bucket of 64, on `device`."""
+    dev = samples_on(samples, device)
     thresh = (max_sampson_error_pixels * _size_scale(image_size1) *
               max_sampson_error_pixels * _size_scale(image_size2))
     ropts = RansacOptions(error_thresh=float(thresh),
@@ -193,20 +196,20 @@ def _verify_chunk(idx_e, idx_h, x1, x2, pix1, pix2, mask, th, hth, f1, f2,
     return aa2, t2, R2, keep, keep.sum(dim=-1), hsum.num_inliers, gidx2
 
 
-@geometry_precision
+@full_f32()
 def verify_matches_batch(samples, pix1, pix2, mask, focal1, focal2,
                          pp1, pp2, image_sizes,
                          opts: GeometricVerificationOptions = None,
                          kp1_all=None, kp2_all=None, desc1=None,
                          desc2=None, fmask1=None, fmask2=None,
-                         dtype=torch.float32):
+                         dtype=torch.float32, device="cuda"):
     """verify_matches over P pairs in one batched computation.
 
     pix1/pix2 (P, N, 2) padded putative pixel matches; mask (P, N);
     focal1/2 (P,); pp1/pp2 (P, 2); image_sizes (P, 2, 2) as
     [[w1, h1], [w2, h2]] per pair (zeros -> unscaled threshold), all
-    host arrays. samples: a torch.Generator (the computation runs on its
-    device) or VerificationSamples (P, H, 5) and (P, H, 4) (on theirs).
+    host arrays. samples: a torch.Generator or VerificationSamples
+    (P, H, 5) and (P, H, 4), on `device`.
 
     opts.guided_matching is honoured when the pairs' padded features
     are given (kp1_all/kp2_all (P, M, >=2) pixel keypoints,
@@ -217,7 +220,7 @@ def verify_matches_batch(samples, pix1, pix2, mask, focal1, focal2,
     Returns (list of TwoViewInfo or None, list of corr (Mi, 4))."""
     opts = opts or GeometricVerificationOptions()
     ev = opts.estimate_twoview_info
-    dev = samples_device(samples)
+    dev = samples_on(samples, device)
     P, maxm = np.asarray(pix1).shape[:2]
     f1 = np.asarray(focal1, float)
     f2 = np.asarray(focal2, float)
@@ -238,7 +241,7 @@ def verify_matches_batch(samples, pix1, pix2, mask, focal1, focal2,
     if isinstance(samples, torch.Generator):
         samples = draw_verification_samples(samples, mask_t,
                                             ev.num_hypotheses)
-    idx_e, idx_h = (s.to(dev) for s in samples)
+    idx_e, idx_h = samples
     base = [t(x1), t(x2), t(pix1), t(pix2), mask_t, t(thresh),
             t(h_thresh), t(f1), t(f2), t(pp1), t(pp2)]
     guided = bool(opts.guided_matching and kp1_all is not None
@@ -295,22 +298,23 @@ def verify_matches_batch(samples, pix1, pix2, mask, focal1, focal2,
     return infos, corrs
 
 
+@full_f32()
 def verify_matches(samples, pix1, pix2, focal1, focal2, pp1, pp2,
                    opts: GeometricVerificationOptions = None,
                    kp1_all=None, kp2_all=None, desc1=None, desc2=None,
                    mask1=None, mask2=None,
                    image_size1=None, image_size2=None,
-                   dtype=torch.float32):
+                   dtype=torch.float32, device="cuda"):
     """Verify putative matches between two calibrated views.
 
     pix1/pix2: (N, 2) putative match pixel coords. Optional kp/desc
     arrays enable guided matching over all features. samples: a
     torch.Generator or VerificationSamples (H, 5) and (H, 4) into the
-    matches padded to a bucket of 64. Returns (TwoViewInfo or None,
-    inlier_correspondences (M, 4))."""
+    matches padded to a bucket of 64, on `device`. Returns (TwoViewInfo
+    or None, inlier_correspondences (M, 4))."""
     opts = opts or GeometricVerificationOptions()
     ev = opts.estimate_twoview_info
-    dev = samples_device(samples)
+    dev = samples_on(samples, device)
     pix1 = np.asarray(pix1, float)
     pix2 = np.asarray(pix2, float)
     if isinstance(samples, torch.Generator):
@@ -324,11 +328,11 @@ def verify_matches(samples, pix1, pix2, focal1, focal2, pp1, pp2,
     num_h = count_homography_inliers(
         samples.homography, pix1, pix2, ev.max_sampson_error_pixels,
         image_size1, image_size2, num_hypotheses=ev.num_hypotheses,
-        dtype=dtype)
+        dtype=dtype, device=dev)
     # 1. two-view estimation
     info, inliers = estimate_twoview_info(
         samples.essential, pix1, pix2, focal1, focal2, ev, pp1=pp1,
-        pp2=pp2, dtype=dtype)
+        pp2=pp2, dtype=dtype, device=dev)
     if info.num_verified_matches < opts.min_num_inlier_matches:
         return None, np.zeros((0, 4))
     corr1 = pix1[inliers]

@@ -6,8 +6,8 @@ ref: src/theia/sfm/estimate_twoview_info.{h,cc} — calibrated pairs use
 TwoViewInfo (relative rotation/position) and the inlier mask.
 
 Where the JAX module takes a PRNG key these take `samples`: a
-torch.Generator, whose device they run on, or precomputed sample
-indices (see solvers/ransac.py), whose device they run on.
+torch.Generator or precomputed sample indices (see solvers/ransac.py),
+on `device`, where they run: the card unless the caller passes "cpu".
 """
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ import torch
 
 from ...math import rotation as rot
 from ...solvers import RansacOptions, ransac_batch
-from ...utils.precision import geometry_precision
+from ...utils.device import full_f32, resolve_device
 from ..estimators import estimate_relative_pose
 from ..estimators.twoview_estimators import _singleton_spec
 from ..pose.twoview_utils import relative_pose_from_essential
@@ -33,14 +33,19 @@ class TwoViewInfoOptions:
     min_inliers: int = 30
 
 
-def samples_device(samples):
-    """The device a computation fed by `samples` runs on: a
-    torch.Generator's, or that of the (first) index tensor."""
-    if isinstance(samples, torch.Generator):
-        return samples.device
-    if isinstance(samples, torch.Tensor):
-        return samples.device
-    return samples[0].device
+def samples_on(samples, device):
+    """The resolved `device`; raises unless `samples` (a
+    torch.Generator, an index tensor or a tuple of them) lie on it."""
+    dev = resolve_device(device)
+    parts = (samples if isinstance(samples, (tuple, list)) else
+             (samples,))
+    for s in parts:
+        d = s.device
+        if d.type != dev.type or (d.index is not None and dev.index
+                                  is not None and d.index != dev.index):
+            raise ValueError(f"samples on {d}, computation on {dev}: "
+                             "draw them on the device the call runs on")
+    return dev
 
 
 def scaled_residuals(spec, thresh):
@@ -51,17 +56,17 @@ def scaled_residuals(spec, thresh):
         thresh[:, None, None])
 
 
-@geometry_precision
+@full_f32()
 def estimate_twoview_info_batch(samples, pix1, pix2, mask, focal1, focal2,
                                 pp1, pp2, opts: TwoViewInfoOptions,
-                                dtype=torch.float32):
+                                dtype=torch.float32, device="cuda"):
     """Two-view estimation over P pairs in one batched computation.
 
     pix1/pix2 (P, N, 2) padded pixel correspondences; mask (P, N);
     focal (P,), pp (P, 2); samples a torch.Generator or (P, H, 5)
-    indices. Returns (list of TwoViewInfo or None, inliers (P, N)
-    np.ndarray)."""
-    dev = samples_device(samples)
+    indices on `device`. Returns (list of TwoViewInfo or None, inliers
+    (P, N) np.ndarray)."""
+    dev = samples_on(samples, device)
 
     def t(x):
         return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
@@ -93,17 +98,18 @@ def estimate_twoview_info_batch(samples, pix1, pix2, mask, focal1, focal2,
     return infos, inliers
 
 
+@full_f32()
 def estimate_twoview_info(samples, pix1, pix2, focal1, focal2, opts,
                           pp1=(0.0, 0.0), pp2=(0.0, 0.0),
-                          dtype=torch.float32):
+                          dtype=torch.float32, device="cuda"):
     """Calibrated two-view estimation of one pair.
 
     pix1/pix2: (N, 2) pixel coords; focals and principal points from
     the priors (ref CalibratedEstimateTwoViewInfo,
     estimate_twoview_info.cc:131+); samples a torch.Generator or (H, 5)
-    indices into the correspondences padded to a bucket of 64.
-    Returns (TwoViewInfo, inlier_mask (N,) np.ndarray)."""
-    dev = samples_device(samples)
+    indices into the correspondences padded to a bucket of 64, on
+    `device`. Returns (TwoViewInfo, inlier_mask (N,) np.ndarray)."""
+    dev = samples_on(samples, device)
 
     def t(x):
         return torch.as_tensor(np.asarray(x), device=dev).to(dtype)
