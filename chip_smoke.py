@@ -23,8 +23,16 @@ main paths:
 * the front end with geometric verification (FeatureMatcher's default
   options, then guided matching): the same 28 pairs matched and
   verified in one batched call per chunk, the verified poses held to
-  the ground truth and the card's verification to the port's on the
-  CPU.
+  the ground truth and the default run's verification to the port's on
+  the CPU;
+* from pixels to a reconstruction: the same views' card features in a
+  ReconstructionBuilder(INCREMENTAL) with the default options
+  (extract_and_match_features, then build_reconstruction: P3P
+  localization, track triangulation, BA and the outlier filters),
+  held to the ground truth, to the gate tests/incremental_reference.py
+  sets from the JAX package on the CPU, and to the same reconstruction
+  on the CPU from the card's database; then 24 views with Fisher-vector
+  pair selection, the matcher kernel held on that run's own chunks.
 
 Every phase prints one JSON line; any failure raises, and the script
 exits non-zero without printing a result. It imports neither JAX nor the
@@ -38,6 +46,7 @@ and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import json
 import statistics
@@ -65,9 +74,12 @@ from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as gvm
+from theiasfm_tpu_torch.sfm.pipeline import incremental as tinc
 from theiasfm_tpu_torch.sfm.pipeline import twoview as tvm
 from theiasfm_tpu_torch.sfm.pose import five_point as fpm
 from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
+from theiasfm_tpu_torch.sfm.reconstruction_builder import (
+    ReconstructionBuilder, ReconstructionBuilderOptions)
 from theiasfm_tpu_torch.utils import (dispatch_counts, next_bucket,
                                       reset_dispatch_counts)
 
@@ -106,8 +118,13 @@ FAST_PBLOCKS = dataclasses.replace(FAST_PT, pallas_blocks=True)
 BLOCKS_SOURCE = "theiasfm_tpu_torch/csrc/ba_blocks.cu"
 
 
+T0 = time.perf_counter()
+
+
 def emit(phase, **fields):
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; `elapsed_s` counts from the script's start."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def check(cond, msg):
@@ -402,10 +419,14 @@ def _solve(prob, opts):
 
 def _profile(fn, prefix):
     """Over one call of fn (torch.profiler, CPU and CUDA activity): the
-    device's busy and idle share (device-side events only, so an op and
-    its kernel are not counted twice), device time by kernel, and host
-    and device time by the profiler ranges whose names start with
-    `prefix`. Returns (fn's result, the summary)."""
+    device's busy and idle share (device-side events other than the
+    mirrors of the profiler ranges, so a range is not counted as a
+    kernel), device time by kernel, and host and device time by the
+    profiler ranges whose names start with `prefix` (a range's device
+    time: the kernels launched by host ops that start inside it).
+    Reads the profiler's raw events: building torch's event tree for
+    the some 10^5 events of a reconstruct costs minutes. Returns (fn's
+    result, the summary)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -415,18 +436,30 @@ def _profile(fn, prefix):
         out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels, phases = {}, {}
-    for ev in prof.events():
-        if ev.name.startswith(prefix):
-            if ev.device_type == DeviceType.CPU:
-                ph = phases.setdefault(ev.name, [0.0, 0.0, 0])
-                ph[0] += ev.cpu_time_total
-                ph[1] += ev.device_time_total
-                ph[2] += 1
-        elif ev.device_type == DeviceType.CUDA:
-            k = kernels.setdefault(ev.name, [0.0, 0])
-            k[0] += ev.device_time_total
+    t1 = time.perf_counter()
+    op_start, ranges, device, kernels = {}, [], [], {}
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == DeviceType.CPU:
+            if ev.linked_correlation_id() == 0:
+                op_start[ev.correlation_id()] = ev.start_ns()
+            if ev.name().startswith(prefix):
+                ranges.append((ev.name(), ev.start_ns(), ev.end_ns()))
+        elif ev.device_type() == DeviceType.CUDA and \
+                not ev.is_user_annotation():
+            k = kernels.setdefault(ev.name(), [0.0, 0])
+            k[0] += ev.duration_ns() / 1e3
             k[1] += 1
+            device.append((ev.linked_correlation_id(), ev.duration_ns()))
+    device = sorted((op_start.get(c, -1), d) for c, d in device)
+    starts = [t for t, _ in device]
+    cum = np.concatenate([[0], np.cumsum([d for _, d in device])]).tolist()
+    phases = {}
+    for name, a, b in ranges:
+        ph = phases.setdefault(name, [0.0, 0.0, 0])
+        ph[0] += (b - a) / 1e6
+        ph[1] += (cum[bisect.bisect_right(starts, b)] -
+                  cum[bisect.bisect_left(starts, a)]) / 1e6
+        ph[2] += 1
     busy_us = sum(v[0] for v in kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:15]
     return out, dict(
@@ -434,10 +467,11 @@ def _profile(fn, prefix):
         device_busy_s=busy_us / 1e6 if kernels else "not measured",
         device_idle_share=(1 - busy_us / 1e6 / wall) if kernels
         else "not measured",
-        phases={k: {"host_ms": c / 1e3, "device_ms": d / 1e3, "calls": n}
+        phases={k: {"host_ms": c, "device_ms": d, "calls": n}
                 for k, (c, d, n) in sorted(phases.items())},
         top=[{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
-             for k, (us, n) in top])
+             for k, (us, n) in top],
+        events_s=time.perf_counter() - t1)
 
 
 def phase_ba_main():
@@ -782,8 +816,13 @@ def phase_ba_f64():
 MATCH_SOURCE = "theiasfm_tpu_torch/csrc/top2_match.cu"
 MATCHER = "theiasfm_tpu/matching/pallas_matcher.py"
 RATIO = 0.8
-# (name, pairs B, padded rows N, D, valid rows per pair lo..hi)
+# (name, pairs B, padded rows N, D, valid rows per pair lo..hi): the
+# chunks of `frontend` (28 pairs) and of `incremental_24` (174 pairs in
+# chunks of 32: five of 32 and one of 14), whose views hold some 1,500
+# SIFT features each
 MATCH_SHAPES = [("frontend", 28, 2048, 128, 1400, 1600),
+                ("incremental_24", 32, 2048, 128, 1400, 1600),
+                ("incremental_24_last", 14, 2048, 128, 1400, 1600),
                 ("unbatched_8192", 1, 8192, 128, 8192, 8192),
                 ("ragged", 3, 200, 32, 150, 200)]
 
@@ -1066,7 +1105,8 @@ def phase_frontend():
          pair_rows_differing=n_sym,
          card_vs_cpu_sift=list(agree), cpu_sift_s=cpu_s,
          peak_device_gib=peak)
-    scene = dict(names=names, arrays=arrays, priors=priors, cams=cams)
+    scene = dict(names=names, arrays=arrays, priors=priors, cams=cams,
+                 sift_s=statistics.median(warm))
     return counts["top2_match"], pair_counts["top2_match"], scene
 
 
@@ -1327,7 +1367,11 @@ def phase_frontend_verify(scene):
         peak = torch.cuda.max_memory_allocated() / 2**30
         pairs = _pair_records(db, scene, f"frontend_verify {run}")
         check(n_pairs == len(pairs), f"frontend_verify {run}: stored count")
-        cpu = _card_vs_cpu(spy.calls[0], scene, run)
+        # the card-vs-CPU reruns for the default options only: the
+        # guided run shares their stages, and its reruns took some 21 s
+        # of the script's time
+        cpu = (_card_vs_cpu(spy.calls[0], scene, run) if run == "default"
+               else "not rerun")
 
         warm, verify_warm = [], []
         for _ in range(3):
@@ -1382,6 +1426,310 @@ def phase_frontend_verify(scene):
     return results
 
 
+# ---------------------------------------------------------- incremental
+
+# Gate of the incremental phases (views reconstructed, mean reprojection
+# error), from tests/incremental_reference.py: JAX's
+# ReconstructionBuilder(INCREMENTAL) on the CPU on the same 8 views,
+# seeds 0-4, reconstructs every view at 0.1121-0.7839 px (PERF.md, the
+# incremental cell). The gate is JAX's worst reading: every view, and a
+# mean error of at most 0.784 px (0.7839 rounded up at the third decimal).
+INCR_VIEWS_MIN_SHARE = 1.0
+INCR_REPROJ_MAX_PX = 0.784
+# The card's reconstruction against the same one on the CPU from the card's
+# database (each device draws its own localization samples): the same views
+# estimated, and estimated tracks within this share of the card's.
+INCR_CPU_TRACKS_REL = 0.05
+
+
+def _rodrigues(aa):
+    aa = np.asarray(aa, float)
+    th = np.linalg.norm(aa)
+    if th < 1e-12:
+        return np.eye(3)
+    k = aa / th
+    K = np.array([[0, -k[2], k[1]], [k[2], 0, -k[0]], [-k[1], k[0], 0]])
+    return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+
+
+def _umeyama(src, dst):
+    """Similarity (s, R, t) with dst ~ s R src + t (least squares)."""
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    sc, dc = src - mu_s, dst - mu_d
+    U, S, Vt = np.linalg.svd(dc.T @ sc / len(src))
+    D = np.eye(3)
+    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
+    R = U @ D @ Vt
+    s = np.trace(np.diag(S) @ D) / ((sc ** 2).sum() / len(src))
+    return s, R, mu_d - s * R @ mu_s
+
+
+def _view_index(name):
+    return int(name[4:])
+
+
+def model_report(model, cams):
+    """A reconstruction (this package's or the JAX package's: the same
+    fields) against the rendered views' ground truth (x_cam = R X + t):
+    views and tracks estimated, the reprojection error of every
+    observation of an estimated track in an estimated view (pinhole, no
+    distortion), and after a similarity alignment of the camera centres
+    to the true ones (Umeyama) the rotation errors and the position
+    errors as a fraction of the scene size (the largest distance between
+    two true centres of the estimated views)."""
+    views = sorted(model.estimated_views())
+    errs = []
+    for v in views:
+        view = model.views[v]
+        ext, intr = np.asarray(view.camera.extrinsics, float), \
+            np.asarray(view.camera.intrinsics, float)
+        tids = [t for t in view.features if t in model.tracks and
+                model.tracks[t].is_estimated]
+        if not tids:
+            continue
+        X = np.stack([model.tracks[t].point[:3] / model.tracks[t].point[3]
+                      for t in tids])
+        pix = np.stack([view.features[t] for t in tids])
+        pc = (X - ext[:3]) @ _rodrigues(ext[3:]).T
+        xy = pc[:, :2] / pc[:, 2:]
+        proj = np.stack([intr[0] * xy[:, 0] + intr[2] * xy[:, 1] + intr[3],
+                         intr[0] * intr[1] * xy[:, 1] + intr[4]], 1)
+        errs.append(np.linalg.norm(proj - pix, axis=1))
+    errs = np.concatenate(errs) if errs else np.zeros(0)
+    out = dict(views_estimated=len(views),
+               tracks_estimated=len(model.estimated_tracks()),
+               reproj_mean_px=float(errs.mean()) if errs.size else None,
+               reproj_median_px=float(np.median(errs)) if errs.size
+               else None, observations=int(errs.size))
+    if len(views) >= 3:
+        idx = [_view_index(model.views[v].name) for v in views]
+        est = np.stack([model.views[v].camera.extrinsics[:3] for v in views])
+        Rt = [cams[i]["R"] for i in idx]
+        true = np.stack([-R.T @ cams[i]["t"] for R, i in zip(Rt, idx)])
+        s, Ra, ta = _umeyama(est, true)
+        size = max(np.linalg.norm(a - b) for a in true for b in true)
+        pos = np.linalg.norm(s * est @ Ra.T + ta - true, axis=1) / size
+        rot_e = []
+        for v, R in zip(views, Rt):
+            Re = _rodrigues(model.views[v].camera.extrinsics[3:]) @ Ra.T
+            c = (np.trace(R.T @ Re) - 1) / 2
+            rot_e.append(float(np.degrees(np.arccos(np.clip(c, -1, 1)))))
+        out.update(median_rotation_err_deg=float(np.median(rot_e)),
+                   max_rotation_err_deg=float(np.max(rot_e)),
+                   median_position_err_frac=float(np.median(pos)),
+                   max_position_err_frac=float(np.max(pos)),
+                   scene_size=float(size))
+    return out
+
+
+class SeedSpy:
+    """Records, while active, the pairs an incremental module's
+    _initialize_from_pair places and the tracks each triangulates; the
+    last one placed is the seed. Works on this package's module and on
+    the JAX package's (the same function name and first arguments)."""
+
+    def __init__(self, module):
+        self.module = module
+        self.calls = []
+
+    def __enter__(self):
+        self._real = self.module._initialize_from_pair
+
+        def spy(recon, graph, pair, *a, **k):
+            n = self._real(recon, graph, pair, *a, **k)
+            names = [recon.views[v].name for v in pair]
+            self.calls.append(dict(pair=names, tracks=int(n),
+                                   info=graph.edge(*pair)))
+            return n
+        self.module._initialize_from_pair = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module._initialize_from_pair = self._real
+
+    def seed(self, cams):
+        """The seed pair, its triangulated tracks, its TwoViewInfo's
+        counts and its pose errors against the ground truth."""
+        if not self.calls:
+            return None
+        c = self.calls[-1]
+        i, j = (_view_index(n) for n in c["pair"])
+        rot_err, dir_err = _pose_errors(c["info"], cams[i], cams[j])
+        return dict(pair=f"{i}-{j}", tracks=c["tracks"],
+                    pairs_tried=len(self.calls),
+                    verified=int(c["info"].num_verified_matches),
+                    homography_inliers=int(c["info"].num_homography_inliers),
+                    rotation_err_deg=rot_err, direction_err_deg=dir_err)
+
+
+def incremental_gate(report, n_views):
+    """The incremental phases' gate: at least INCR_VIEWS_MIN_SHARE of the
+    views reconstructed at a mean reprojection error of at most
+    INCR_REPROJ_MAX_PX."""
+    return (report["views_estimated"] >= INCR_VIEWS_MIN_SHARE * n_views
+            and report["reproj_mean_px"] is not None
+            and report["reproj_mean_px"] <= INCR_REPROJ_MAX_PX)
+
+
+def _builder(scene, opts, device="cuda", db=None):
+    """A ReconstructionBuilder on `device` whose database holds the
+    scene's card SIFT features and priors (or `db`), with every view
+    added by name: extract_and_match_features then skips extraction and
+    matches, as it does for images the database already holds."""
+    if db is None:
+        db = features_db_from_arrays(scene["arrays"], scene["priors"])
+    b = ReconstructionBuilder(opts, db, device=device)
+    for n in scene["names"]:
+        b.add_image(n)
+    return b
+
+
+def _incremental_run(scene, opts, what):
+    """extract_and_match_features, then build_reconstruction, on the
+    card: wall seconds of each (synchronized), the counts of exactly
+    this run, the pairs matched, the seed pair, the model's report and
+    the builder (its database holds the verified matches)."""
+    b = _builder(scene, opts)
+    reset_dispatch_counts()
+    n_pairs, em_s = sync_time(b.extract_and_match_features)
+    match_counts = dispatch_counts()
+    pairs = b._matcher._pairs
+    n_matched = (len(pairs) if pairs is not None else
+                 len(scene["names"]) * (len(scene["names"]) - 1) // 2)
+    chunks = -(-n_matched // opts.matching.pair_batch_size)
+    check(match_counts.get("top2_match", 0) == 2 * chunks,
+          f"{what}: top2_match launched {match_counts} for {chunks} "
+          "chunks, expected 2 per chunk")
+    reset_dispatch_counts()
+    with SeedSpy(tinc) as spy:
+        models, rec_s = sync_time(b.build_reconstruction)
+    counts = dispatch_counts()
+    check(len(models) >= 1, f"{what}: no model")
+    report = model_report(models[0], scene["cams"])
+    check(incremental_gate(report, len(scene["names"])),
+          f"{what}: gate (>= {INCR_VIEWS_MIN_SHARE:.3f} of the views, "
+          f"mean reprojection <= {INCR_REPROJ_MAX_PX} px) failed: {report}")
+    for m in models:
+        for v in m.estimated_views():
+            check(np.isfinite(m.views[v].camera.extrinsics).all(),
+                  f"{what}: non-finite camera")
+    return dict(extract_and_match_s=em_s, reconstruct_s=rec_s,
+                pairs_matched=n_matched, pairs_verified=n_pairs,
+                chunks=chunks, top2_match=match_counts["top2_match"],
+                match_launches=match_counts, device_dispatches=counts,
+                models=len(models), seed_pair=spy.seed(scene["cams"]),
+                **report), b
+
+
+def phase_incremental(scene):
+    """From pixels to a reconstruction at full width: the `frontend`
+    views' card features in a ReconstructionBuilder(INCREMENTAL) with
+    every other option at its default (SiftOptions(),
+    FeatureMatcherOptions() with verification, IncrementalOptions());
+    one cold run and two warm runs of extract_and_match_features and
+    build_reconstruction, one profiled build_reconstruction, and the
+    same reconstruction once on the CPU from the card's database."""
+    opts = ReconstructionBuilderOptions(
+        reconstruction_estimator_type="INCREMENTAL")
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    cold, b = _incremental_run(scene, opts, "incremental cold")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    warm = [_incremental_run(scene, opts, f"incremental warm {i}")[0]
+            for i in range(2)]
+    models, prof = _profile(
+        lambda: _builder(scene, opts, db=b.db).build_reconstruction(),
+        "incr.")
+    emit("incremental_profile", **prof)
+    cpu_b = _builder(scene, opts, device="cpu", db=b.db)
+    with SeedSpy(tinc) as spy:
+        cpu_models, cpu_s = sync_time(cpu_b.build_reconstruction)
+    check(len(cpu_models) >= 1, "incremental: no model on the CPU")
+    cpu = dict(reconstruct_s=cpu_s, models=len(cpu_models),
+               seed_pair=spy.seed(scene["cams"]),
+               **model_report(cpu_models[0], scene["cams"]))
+    card_views = sorted(models[0].estimated_views())
+    check(sorted(cpu_models[0].estimated_views()) == card_views,
+          f"incremental: the CPU rerun estimates other views than the "
+          f"card: {cpu['views_estimated']} against {len(card_views)}")
+    n_card = len(models[0].estimated_tracks())
+    check(abs(cpu["tracks_estimated"] - n_card) <=
+          INCR_CPU_TRACKS_REL * n_card,
+          f"incremental: the CPU rerun estimates {cpu['tracks_estimated']} "
+          f"tracks, the card {n_card} (at most "
+          f"{INCR_CPU_TRACKS_REL:.0%} apart)")
+    res = dict(views=len(scene["names"]), size=[640, 480],
+               options="ReconstructionBuilderOptions(INCREMENTAL)",
+               gate=dict(views_min_share=INCR_VIEWS_MIN_SHARE,
+                         reproj_max_px=INCR_REPROJ_MAX_PX,
+                         cpu_tracks_rel=INCR_CPU_TRACKS_REL),
+               sift_s=scene["sift_s"], cold=cold, warm=warm,
+               extract_and_match_warm_s=[w["extract_and_match_s"]
+                                         for w in warm],
+               reconstruct_warm_s=[w["reconstruct_s"] for w in warm],
+               peak_device_gib=peak, peak_above_held_gib=peak - held,
+               cpu_from_card_db=cpu,
+               nvidia_smi=nvidia_smi())
+    emit("incremental", **res)
+    return cold["top2_match"], res
+
+
+def phase_incremental_24():
+    """The same at 24 views, pairs chosen by Fisher vectors (8 nearest
+    neighbours and query expansion, as scripts/bench_e2e.py sets them at
+    24 views): the views' SIFT on the card, then one warm run."""
+    n = 24
+    views, cams = render_synthetic_views(_texture(0), n, (640, 480),
+                                         focal=600.0)
+    names = [f"view{i:03d}" for i in range(n)]
+    opts_s = SiftOptions()
+    extract_sift_batch(views[:2], opts_s, device="cuda")
+    feats, sift_s = sync_time(lambda: extract_sift_batch(views, opts_s,
+                                                         device="cuda"))
+    scene = dict(names=names, cams=cams, sift_s=sift_s,
+                 arrays={nm: (k[v], d[v]) for nm, (k, d, v) in
+                         zip(names, feats)},
+                 priors={nm: dict(image_width=640, image_height=480,
+                                  focal_length=600.0,
+                                  principal_point=(320.0, 240.0))
+                         for nm in names})
+    opts = ReconstructionBuilderOptions(
+        reconstruction_estimator_type="INCREMENTAL",
+        select_image_pairs_with_global_descriptors=True,
+        num_nearest_neighbors_for_global_descriptor_matching=8)
+    # the first run keeps the inputs of the first top2 call at each chunk
+    # shape; top2_match is then held against top2_plain on them
+    chunks, real = {}, tfm.top2
+
+    def keep(d1, d2, n2):
+        chunks.setdefault(tuple(d1.shape),
+                          (d1.clone(), d2.clone(), n2.clone()))
+        return real(d1, d2, n2)
+    tfm.top2 = keep
+    try:
+        _incremental_run(scene, opts, "incremental_24 first")
+    finally:
+        tfm.top2 = real
+    chunk_check = {}
+    for shape, (d1, d2, n2) in sorted(chunks.items()):
+        what = "incremental_24 chunk " + "x".join(map(str, shape))
+        err, ties = _check_top2(what, tfm.top2(d1, d2, n2),
+                                tfm.top2_plain(d1, d2, n2))
+        chunk_check[what] = dict(max_abs_err=err, idx_diff_at_near_ties=ties)
+    del chunks
+    torch.cuda.reset_peak_memory_stats()
+    run, _ = _incremental_run(scene, opts, "incremental_24")
+    res = dict(views=n, all_pairs=n * (n - 1) // 2, sift_s=sift_s,
+               gate=dict(views_min_share=INCR_VIEWS_MIN_SHARE,
+                         reproj_max_px=INCR_REPROJ_MAX_PX),
+               top2_on_chunks=chunk_check,
+               peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+               nvidia_smi=nvidia_smi(), **run)
+    emit("incremental_24", **res)
+    return run["top2_match"], max(c["max_abs_err"]
+                                  for c in chunk_check.values())
+
+
 # ----------------------------------------------------------------- main
 
 def main():
@@ -1403,6 +1751,8 @@ def main():
     phase_ba_f64()
     n_batched, n_pair, scene = phase_frontend()
     phase_frontend_verify(scene)
+    n_incr, _ = phase_incremental(scene)
+    n_incr24, err_incr24 = phase_incremental_24()
 
     summary = []
     for (name, layout), replaces in REPLACES.items():
@@ -1428,9 +1778,14 @@ def main():
         shape="notre_dame f32", trafalgar_ms=tra["ms"],
         trafalgar_plain_ms=tra["plain_ms"],
         trafalgar_bound_ms=tra["bound_ms"]))
-    for name, shape, line, launches in (
-            ("top2_match", "frontend", 120, n_batched),
-            ("top2_match[B=1]", "unbatched_8192", 30, n_pair)):
+    for name, shape, line, launches, extra in (
+            ("top2_match", "frontend", 120, n_batched,
+             dict(incremental_launches=n_incr,
+                  incremental_24_launches=n_incr24,
+                  incremental_24_max_abs_err=max(
+                      err_incr24, mres["incremental_24"]["max_abs_err"],
+                      mres["incremental_24_last"]["max_abs_err"]))),
+            ("top2_match[B=1]", "unbatched_8192", 30, n_pair, {})):
         rec = mres[shape]
         summary.append(dict(
             name=name, route="cuda", source=MATCH_SOURCE,
@@ -1438,7 +1793,8 @@ def main():
             max_abs_err=rec["max_abs_err"], ms=rec["ms"],
             plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
-            shape=f"{shape}: B={rec['B']} M=N={rec['N']} D={rec['D']}"))
+            shape=f"{shape}: B={rec['B']} M=N={rec['N']} D={rec['D']}",
+            **extra))
     emit("done", seconds=time.perf_counter() - timer_start)
     print(json.dumps({"kernels": summary}))
     print(nvidia_smi())

@@ -302,3 +302,123 @@ def test_rest_of_ba_runs_without_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_builder_runs_without_jax():
+    """With jax and theiasfm_tpu unimportable: the reconstruction
+    builder from injected matches of a 6-view synthetic scene, the
+    INCREMENTAL estimator on the CPU (P3P localization, track
+    estimation, BA, filters), and the Fisher-vector extractor; nothing
+    is built or loaded."""
+    code = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "theiasfm_tpu"):
+            sys.modules[name] = None
+        import numpy as np
+        import torch
+        from theiasfm_tpu_torch import _kernels
+        from theiasfm_tpu_torch.convert import features_db_from_arrays
+        from theiasfm_tpu_torch.math import rotation as rot
+        from theiasfm_tpu_torch.matching import ImagePairMatch
+        from theiasfm_tpu_torch.matching.fisher_vector import (
+            FisherVectorExtractor, FisherVectorOptions)
+        from theiasfm_tpu_torch.sfm.reconstruction_builder import (
+            ReconstructionBuilder, ReconstructionBuilderOptions)
+        from theiasfm_tpu_torch.sfm.view_graph import TwoViewInfo
+        rng = np.random.default_rng(0)
+        pts = rng.uniform(-2.5, 2.5, size=(100, 3))
+        Rs, cs, obs = [], [], []
+        for v in range(6):
+            a = 0.9 * (v / 5 - 0.5)
+            c = np.array([8 * np.sin(a), 0.3 * rng.normal(),
+                          -8 * np.cos(a)])
+            z = -c / np.linalg.norm(c)
+            x = np.cross([0, 1, 0], z)
+            x /= np.linalg.norm(x)
+            R = np.stack([x, np.cross(z, x), z])
+            pc = (pts - c) @ R.T
+            obs.append(700 * pc[:, :2] / pc[:, 2:] + 400 +
+                       rng.normal(scale=0.3, size=(100, 2)))
+            Rs.append(R)
+            cs.append(c)
+        names = [f"v{v}" for v in range(6)]
+        db = features_db_from_arrays(
+            {n: (np.concatenate([o, np.ones((100, 2))], 1),
+                 rng.random((100, 128)).astype(np.float32))
+             for n, o in zip(names, obs)},
+            {n: dict(image_width=800, image_height=800, focal_length=700.0,
+                     principal_point=(400.0, 400.0)) for n in names})
+        b = ReconstructionBuilder(ReconstructionBuilderOptions(
+            reconstruction_estimator_type="INCREMENTAL"), db, device="cpu")
+        for i in range(6):
+            for j in range(i + 1, 6):
+                pos = Rs[i] @ (cs[j] - cs[i])
+                aa = rot.rotation_matrix_to_angle_axis(
+                    torch.from_numpy(Rs[j] @ Rs[i].T)).numpy()
+                info = TwoViewInfo(position_2=pos / np.linalg.norm(pos),
+                                   rotation_2=aa, num_verified_matches=100)
+                b.add_two_view_match(names[i], names[j], ImagePairMatch(
+                    names[i], names[j], info,
+                    np.concatenate([obs[i], obs[j]], 1)))
+        models = b.build_reconstruction()
+        assert len(models) == 1, models
+        assert len(models[0].estimated_views()) == 6
+        assert len(models[0].estimated_tracks()) > 80
+        fv = FisherVectorExtractor(FisherVectorOptions(num_gmm_clusters=2,
+                                                       em_iterations=2),
+                                   device="cpu")
+        fv.train(rng.random((50, 8)))
+        assert np.isfinite(fv.extract_global_descriptor(
+            rng.random((10, 8)))).all()
+        assert _kernels.build.cache_info().currsize == 0
+        assert not any(m == "jax" or m.startswith(("jax.", "theiasfm_tpu."))
+                       for m, v in sys.modules.items() if v is not None)
+        print("ok")
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_incremental_entry_points_raise_without_card():
+    """The incremental pipeline, the localization and the builder (and
+    the modules they build on: track estimation, the filters, the
+    Fisher-vector extractor, the feature extractor) default to the card
+    and refuse to fall back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from theiasfm_tpu_torch.matching.fisher_vector import (
+        FisherVectorExtractor)
+    from theiasfm_tpu_torch.sfm.feature_extractor import FeatureExtractor
+    from theiasfm_tpu_torch.sfm.pipeline import (
+        EstimateTracksOptions, IncrementalOptions, LocalizeOptions,
+        estimate_all_tracks, incremental_reconstruction, localize_view,
+        set_outlier_tracks_to_unestimated)
+    from theiasfm_tpu_torch.sfm.pipeline.localize import (
+        localize_views_batch)
+    from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
+    from theiasfm_tpu_torch.sfm.reconstruction_builder import (
+        ReconstructionBuilder, ReconstructionBuilderOptions)
+    from theiasfm_tpu_torch.sfm.view_graph import ViewGraph
+    rec = Reconstruction()
+    rec.add_view("v0")
+    g = torch.Generator()
+    calls = [
+        lambda: incremental_reconstruction(rec, ViewGraph()),
+        lambda: localize_views_batch(g, rec, [0], LocalizeOptions()),
+        lambda: localize_view(g, rec, 0, LocalizeOptions()),
+        lambda: estimate_all_tracks(rec, EstimateTracksOptions()),
+        lambda: set_outlier_tracks_to_unestimated(rec),
+        lambda: ReconstructionBuilder(ReconstructionBuilderOptions()),
+        lambda: FisherVectorExtractor(),
+        lambda: FeatureExtractor()]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    # on the CPU when asked
+    assert incremental_reconstruction(rec, ViewGraph(), IncrementalOptions(),
+                                      device="cpu")["success"] is False
+    assert localize_views_batch(g, rec, [0], LocalizeOptions(),
+                                device="cpu") == {}
+    ReconstructionBuilder(ReconstructionBuilderOptions(), device="cpu")

@@ -28,17 +28,26 @@ Ported so far:
   a hand-written CUDA kernel (`csrc/ba_blocks.cu`, `pallas_blocks`), the
   dense-Schur solver, the float64 polish, the reconstruction data model
   (`sfm/reconstruction.py`) with the reconstruction-level entry points
-  (`sfm/ba/entry_points.py`), and the two-view refinements.
+  (`sfm/ba/entry_points.py`), and the two-view refinements;
+* from verified matches to a reconstruction, in plain PyTorch: the view
+  graph and track builder, P3P (`sfm/pose/p3p.py`) and the calibrated
+  absolute-pose estimator, localization, track estimation, the outlier
+  filters and the incremental pipeline (`sfm/pipeline/`), Fisher-vector
+  pair selection (`matching/fisher_vector.py`), the feature extractor
+  and the ReconstructionBuilder, whose INCREMENTAL estimator runs (the
+  global and hybrid pipelines export their options and raise).
 
 The kernels are built at first use by `_kernels.py`. Entry points run
 on the device of the tensors they are given; the constructors and entry
 points that build their own tensors (`bench_problem.make_problem`,
 `convert.from_jax_arrays`, `image.extract_sift[_batch]`,
 `matching.FeatureMatcher`, `Reconstruction.to_ba_problem`, the
-`sfm.ba` entry points and the verification's entry points in
-`sfm.pipeline`) default to `device="cuda"` and raise when no card is
-present; the verification also raises when its torch.Generator or
-sample indices lie on another device.
+`sfm.ba` entry points, the verification's and the incremental
+pipeline's entry points in `sfm.pipeline`, the ReconstructionBuilder,
+the Fisher-vector and feature extractors) default to `device="cuda"`
+and raise when no card is present; the verification and the
+localization also raise when their torch.Generator or sample indices
+lie on another device.
 """
 
 __version__ = "0.3.0"

@@ -11,6 +11,10 @@ Reconstruction's views, tracks and intrinsics groups as plain dicts of
 numpy arrays and scalars (`dataclasses.asdict` of each View and Track)
 and builds the port's Reconstruction.
 
+View graphs: `view_graph_from_state` takes the JAX ViewGraph's edges
+as {(v1, v2): dataclasses.asdict(TwoViewInfo)} and builds the port's
+ViewGraph; `two_view_info_from_state` copies one edge's payload.
+
 Features: `features_db_from_arrays` takes the keypoints and descriptors
 as the JAX package's database holds them (numpy arrays per image name)
 and the intrinsics priors as plain field dicts, and builds the port's
@@ -29,6 +33,7 @@ from .matching.database import (InMemoryFeaturesAndMatchesDatabase,
 from .sfm.ba.bundle_adjustment import BAOptions, BAProblem
 from .sfm.reconstruction import (Camera, CameraIntrinsicsPrior,
                                  Reconstruction, Track, View)
+from .sfm.view_graph import TwoViewInfo, ViewGraph
 from .utils.device import resolve_device
 
 
@@ -120,3 +125,27 @@ def reconstruction_from_state(state: dict) -> Reconstruction:
     rec._next_group_id = state.get(
         "next_group_id", max(rec.view_groups.values(), default=-1) + 1)
     return rec
+
+
+def two_view_info_from_state(fields: dict) -> TwoViewInfo:
+    """dataclasses.asdict(JAX TwoViewInfo) -> the port's TwoViewInfo
+    (arrays copied as float64, counts as ints)."""
+    f = dict(fields)
+    for k in ("position_2", "rotation_2"):
+        f[k] = np.array(f[k], dtype=np.float64, copy=True)
+    for k in ("num_verified_matches", "num_homography_inliers",
+              "visibility_score"):
+        f[k] = int(f[k])
+    for k in ("focal_length_1", "focal_length_2"):
+        f[k] = float(f[k])
+    return TwoViewInfo(**f)
+
+
+def view_graph_from_state(edges: dict) -> ViewGraph:
+    """{(v1, v2): dataclasses.asdict(TwoViewInfo)} of a JAX ViewGraph's
+    edges (`graph.edges()`, stored with v1 < v2) -> the port's
+    ViewGraph with the same edges and payloads."""
+    graph = ViewGraph()
+    for (v1, v2), info in edges.items():
+        graph.add_edge(int(v1), int(v2), two_view_info_from_state(info))
+    return graph

@@ -1,6 +1,6 @@
 """Pose solvers (port of theiasfm_tpu/sfm/pose/). Exports the solvers
 that have landed: the two-view utilities, the 8-point fundamental, the
-4-point homography and the 5-point essential."""
+4-point homography, the 5-point essential and the P3P absolute pose."""
 from .twoview_utils import (  # noqa: F401
     sampson_distance_sq, epipolar_distance_sq, decompose_essential,
     essential_from_rt, fundamental_from_projections,
@@ -11,3 +11,4 @@ from .eight_point import (  # noqa: F401
 )
 from .homography import four_point_homography, npoint_homography  # noqa: F401
 from .five_point import five_point_essential  # noqa: F401
+from .p3p import p3p_grunert  # noqa: F401

@@ -54,7 +54,9 @@ def eigh(A):
 
 
 def svd(A):
-    """U, S, Vh of (..., m, n) A; NaN where A has a non-finite entry."""
+    """U, S, Vh of (..., m, n) A; NaN where A has a non-finite entry. One
+    cuSOLVER call takes P3P's largest batch, 16,384 3x3 matrices, in
+    3.3 ms on the H100 (chip_smoke.py's svd probe)."""
     A, bad = _finite_stand_in(A)
     U, S, Vh = torch.linalg.svd(A)
     nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
