@@ -32,7 +32,18 @@ main paths:
   held to the ground truth, to the gate tests/incremental_reference.py
   sets from the JAX package on the CPU, and to the same reconstruction
   on the CPU from the card's database; then 24 views with Fisher-vector
-  pair selection, the matcher kernel held on that run's own chunks.
+  pair selection, the matcher kernel held on that run's own chunks;
+* the global pipeline at full width (`global_1dsfm`): the 1DSfM-class
+  city scene of bench_problem.build_city_scene at Notre-Dame's 553 views
+  (about 13,000 tracks, 0.5M observations, 5,530 edges) through
+  global_reconstruction with GlobalOptions() (robust rotation averaging,
+  the view-graph filters, LUD positions, triangulation, BA), cold, warm
+  and profiled, held to the gate tests/global_reference.py sets from the
+  JAX package on the CPU, then at 200 views;
+* from pixels with the builder's default options (GLOBAL) on the 24
+  views (`global_24`), held to JAX's reading, its rotation averaging to
+  the CPU's on the same inputs, and its model to the CPU's build from
+  the card's database; and with HYBRID on the 8 views (`hybrid`).
 
 Every phase prints one JSON line; any failure raises, and the script
 exits non-zero without printing a result. It imports neither JAX nor the
@@ -47,18 +58,22 @@ and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
+import hashlib
 import json
+import pickle
 import statistics
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
 
 from theiasfm_tpu_torch import _kernels
-from theiasfm_tpu_torch.bench_problem import make_problem
+from theiasfm_tpu_torch.bench_problem import build_city_scene, make_problem
 from theiasfm_tpu_torch.camera import models as cm
 from theiasfm_tpu_torch.convert import features_db_from_arrays
 from theiasfm_tpu_torch.image import (SiftOptions, extract_sift,
@@ -74,10 +89,12 @@ from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as gvm
+from theiasfm_tpu_torch.sfm.pipeline import global_pipeline as tgp
 from theiasfm_tpu_torch.sfm.pipeline import incremental as tinc
 from theiasfm_tpu_torch.sfm.pipeline import twoview as tvm
 from theiasfm_tpu_torch.sfm.pose import five_point as fpm
 from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
+from theiasfm_tpu_torch.sfm.view_graph import ViewGraph
 from theiasfm_tpu_torch.sfm.reconstruction_builder import (
     ReconstructionBuilder, ReconstructionBuilderOptions)
 from theiasfm_tpu_torch.utils import (dispatch_counts, next_bucket,
@@ -467,6 +484,7 @@ def _profile(fn, prefix):
         device_busy_s=busy_us / 1e6 if kernels else "not measured",
         device_idle_share=(1 - busy_us / 1e6 / wall) if kernels
         else "not measured",
+        device_launches=sum(n for _, n in kernels.values()),
         phases={k: {"host_ms": c, "device_ms": d, "calls": n}
                 for k, (c, d, n) in sorted(phases.items())},
         top=[{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
@@ -1478,6 +1496,28 @@ def model_report(model, cams):
     errors as a fraction of the scene size (the largest distance between
     two true centres of the estimated views)."""
     views = sorted(model.estimated_views())
+    errs = _reprojection_errors(model, views)
+    out = dict(views_estimated=len(views),
+               tracks_estimated=len(model.estimated_tracks()),
+               reproj_mean_px=float(errs.mean()) if errs.size else None,
+               reproj_median_px=float(np.median(errs)) if errs.size
+               else None, observations=int(errs.size))
+    if len(views) >= 3:
+        idx = [_view_index(model.views[v].name) for v in views]
+        est = np.stack([model.views[v].camera.extrinsics[:3] for v in views])
+        Rt = [cams[i]["R"] for i in idx]
+        true = np.stack([-R.T @ cams[i]["t"] for R, i in zip(Rt, idx)])
+        out.update(_aligned_errors(model, views, est, true, Rt))
+        out["median_position_err_frac"] = out.pop("median_position_err") \
+            / out["scene_size"]
+        out["max_position_err_frac"] = out.pop("max_position_err") \
+            / out["scene_size"]
+    return out
+
+
+def _reprojection_errors(model, views):
+    """Pixel reprojection error of every observation of an estimated
+    track in the given views (pinhole, no distortion)."""
     errs = []
     for v in views:
         view = model.views[v]
@@ -1495,31 +1535,105 @@ def model_report(model, cams):
         proj = np.stack([intr[0] * xy[:, 0] + intr[2] * xy[:, 1] + intr[3],
                          intr[0] * intr[1] * xy[:, 1] + intr[4]], 1)
         errs.append(np.linalg.norm(proj - pix, axis=1))
-    errs = np.concatenate(errs) if errs else np.zeros(0)
+    return np.concatenate(errs) if errs else np.zeros(0)
+
+
+def _aligned_errors(model, views, est, true, Rt):
+    """After a similarity alignment of the estimated centres `est` to the
+    true ones (Umeyama): the rotation errors (true world->camera
+    rotations Rt) and the position errors in the truth's units, with the
+    scene size (the largest distance between two true centres)."""
+    s, Ra, ta = _umeyama(est, true)
+    size = np.linalg.norm(true[:, None] - true[None], axis=-1).max()
+    pos = np.linalg.norm(s * est @ Ra.T + ta - true, axis=1)
+    rot_e = []
+    for v, R in zip(views, Rt):
+        Re = _rodrigues(model.views[v].camera.extrinsics[3:]) @ Ra.T
+        c = (np.trace(R.T @ Re) - 1) / 2
+        rot_e.append(float(np.degrees(np.arccos(np.clip(c, -1, 1)))))
+    return dict(median_rotation_err_deg=float(np.median(rot_e)),
+                max_rotation_err_deg=float(np.max(rot_e)),
+                median_position_err=float(np.median(pos)),
+                max_position_err=float(np.max(pos)),
+                scene_size=float(size))
+
+
+def city_report(model, extrs):
+    """A reconstruction of bench_problem.build_city_scene (this
+    package's or the JAX package's) against the scene's true cameras
+    `extrs` (V, 6): views and tracks estimated, the reprojection errors,
+    and after a similarity alignment the rotation errors and the
+    position errors in scene units (the camera loop's diameter is 60)."""
+    views = sorted(model.estimated_views())
+    errs = _reprojection_errors(model, views)
     out = dict(views_estimated=len(views),
                tracks_estimated=len(model.estimated_tracks()),
                reproj_mean_px=float(errs.mean()) if errs.size else None,
-               reproj_median_px=float(np.median(errs)) if errs.size
-               else None, observations=int(errs.size))
+               observations=int(errs.size))
     if len(views) >= 3:
-        idx = [_view_index(model.views[v].name) for v in views]
-        est = np.stack([model.views[v].camera.extrinsics[:3] for v in views])
-        Rt = [cams[i]["R"] for i in idx]
-        true = np.stack([-R.T @ cams[i]["t"] for R, i in zip(Rt, idx)])
-        s, Ra, ta = _umeyama(est, true)
-        size = max(np.linalg.norm(a - b) for a in true for b in true)
-        pos = np.linalg.norm(s * est @ Ra.T + ta - true, axis=1) / size
-        rot_e = []
-        for v, R in zip(views, Rt):
-            Re = _rodrigues(model.views[v].camera.extrinsics[3:]) @ Ra.T
-            c = (np.trace(R.T @ Re) - 1) / 2
-            rot_e.append(float(np.degrees(np.arccos(np.clip(c, -1, 1)))))
-        out.update(median_rotation_err_deg=float(np.median(rot_e)),
-                   max_rotation_err_deg=float(np.max(rot_e)),
-                   median_position_err_frac=float(np.median(pos)),
-                   max_position_err_frac=float(np.max(pos)),
-                   scene_size=float(size))
+        idx = [int(model.views[v].name[1:5]) for v in views]
+        est = np.stack([np.asarray(model.views[v].camera.extrinsics[:3],
+                                   float) for v in views])
+        Rt = [_rodrigues(extrs[i, 3:]) for i in idx]
+        out.update(_aligned_errors(model, views, est, extrs[idx, :3], Rt))
     return out
+
+
+class PoseSpy:
+    """Records, while active, the cameras a global-pipeline module (this
+    package's or the JAX package's) hands its first estimate_all_tracks:
+    rotation averaging, the view-graph filters and the positions done,
+    no track triangulated yet. The spy copies the estimated cameras (a
+    millisecond at 553 views); `report`, city_report's reading of them
+    against the truth `extrs`, is computed when read, outside any timed
+    window."""
+
+    def __init__(self, module, extrs):
+        self.module, self.extrs = module, extrs
+        self.cameras = None
+        self._report = None
+
+    def __enter__(self):
+        self._real = self.module.estimate_all_tracks
+
+        def spy(recon, *a, **k):
+            if self.cameras is None:
+                self.cameras = _CameraSnapshot(recon)
+            return self._real(recon, *a, **k)
+        self.module.estimate_all_tracks = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.module.estimate_all_tracks = self._real
+
+    @property
+    def report(self):
+        if self._report is None and self.cameras is not None:
+            self._report = city_report(self.cameras, self.extrs)
+        return self._report
+
+
+class _CameraSnapshot:
+    """A copy of a reconstruction's estimated cameras (names, extrinsics
+    and intrinsics), with no track: enough of a Reconstruction for
+    city_report."""
+
+    def __init__(self, recon):
+        self.views = {v: types.SimpleNamespace(
+            name=recon.views[v].name, features={},
+            camera=types.SimpleNamespace(
+                extrinsics=np.array(recon.views[v].camera.extrinsics,
+                                    float),
+                intrinsics=np.array(recon.views[v].camera.intrinsics,
+                                    float)))
+            for v in recon.estimated_views()}
+        self.tracks = {}
+
+    def estimated_views(self):
+        return list(self.views)
+
+    def estimated_tracks(self):
+        return []
 
 
 class SeedSpy:
@@ -1562,13 +1676,20 @@ class SeedSpy:
                     rotation_err_deg=rot_err, direction_err_deg=dir_err)
 
 
-def incremental_gate(report, n_views):
-    """The incremental phases' gate: at least INCR_VIEWS_MIN_SHARE of the
-    views reconstructed at a mean reprojection error of at most
-    INCR_REPROJ_MAX_PX."""
-    return (report["views_estimated"] >= INCR_VIEWS_MIN_SHARE * n_views
+def builder_gate(report, n_views, views_min_share, reproj_max_px):
+    """A builder phase's gate: at least views_min_share of the views
+    reconstructed at a mean reprojection error of at most
+    reproj_max_px."""
+    return (report["views_estimated"] >= views_min_share * n_views
             and report["reproj_mean_px"] is not None
-            and report["reproj_mean_px"] <= INCR_REPROJ_MAX_PX)
+            and report["reproj_mean_px"] <= reproj_max_px)
+
+
+def incremental_gate(report, n_views):
+    """The incremental phases' gate (INCR_VIEWS_MIN_SHARE,
+    INCR_REPROJ_MAX_PX)."""
+    return builder_gate(report, n_views, INCR_VIEWS_MIN_SHARE,
+                        INCR_REPROJ_MAX_PX)
 
 
 def _builder(scene, opts, device="cuda", db=None):
@@ -1584,11 +1705,16 @@ def _builder(scene, opts, device="cuda", db=None):
     return b
 
 
-def _incremental_run(scene, opts, what):
+def _builder_run(scene, opts, what, gate=(INCR_VIEWS_MIN_SHARE,
+                                           INCR_REPROJ_MAX_PX),
+                 seed_module=tinc):
     """extract_and_match_features, then build_reconstruction, on the
     card: wall seconds of each (synchronized), the counts of exactly
-    this run, the pairs matched, the seed pair, the model's report and
-    the builder (its database holds the verified matches)."""
+    this run, the pairs matched, the seed pair (of seed_module's
+    _initialize_from_pair; None skips it), the model's report and the
+    builder (its database holds the verified matches). `gate`: the
+    views share and mean reprojection error (px) the model must
+    meet."""
     b = _builder(scene, opts)
     reset_dispatch_counts()
     n_pairs, em_s = sync_time(b.extract_and_match_features)
@@ -1601,14 +1727,15 @@ def _incremental_run(scene, opts, what):
           f"{what}: top2_match launched {match_counts} for {chunks} "
           "chunks, expected 2 per chunk")
     reset_dispatch_counts()
-    with SeedSpy(tinc) as spy:
+    spy = SeedSpy(seed_module) if seed_module else None
+    with spy or contextlib.nullcontext():
         models, rec_s = sync_time(b.build_reconstruction)
     counts = dispatch_counts()
     check(len(models) >= 1, f"{what}: no model")
     report = model_report(models[0], scene["cams"])
-    check(incremental_gate(report, len(scene["names"])),
-          f"{what}: gate (>= {INCR_VIEWS_MIN_SHARE:.3f} of the views, "
-          f"mean reprojection <= {INCR_REPROJ_MAX_PX} px) failed: {report}")
+    check(builder_gate(report, len(scene["names"]), *gate),
+          f"{what}: gate (>= {gate[0]:.3f} of the views, "
+          f"mean reprojection <= {gate[1]} px) failed: {report}")
     for m in models:
         for v in m.estimated_views():
             check(np.isfinite(m.views[v].camera.extrinsics).all(),
@@ -1617,8 +1744,9 @@ def _incremental_run(scene, opts, what):
                 pairs_matched=n_matched, pairs_verified=n_pairs,
                 chunks=chunks, top2_match=match_counts["top2_match"],
                 match_launches=match_counts, device_dispatches=counts,
-                models=len(models), seed_pair=spy.seed(scene["cams"]),
-                **report), b
+                models=len(models),
+                seed_pair=spy.seed(scene["cams"]) if spy else None,
+                **report), b, models
 
 
 def phase_incremental(scene):
@@ -1626,17 +1754,16 @@ def phase_incremental(scene):
     views' card features in a ReconstructionBuilder(INCREMENTAL) with
     every other option at its default (SiftOptions(),
     FeatureMatcherOptions() with verification, IncrementalOptions());
-    one cold run and two warm runs of extract_and_match_features and
+    one cold run and one warm run of extract_and_match_features and
     build_reconstruction, one profiled build_reconstruction, and the
     same reconstruction once on the CPU from the card's database."""
     opts = ReconstructionBuilderOptions(
         reconstruction_estimator_type="INCREMENTAL")
     held = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    cold, b = _incremental_run(scene, opts, "incremental cold")
+    cold, b, _ = _builder_run(scene, opts, "incremental cold")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    warm = [_incremental_run(scene, opts, f"incremental warm {i}")[0]
-            for i in range(2)]
+    warm = [_builder_run(scene, opts, "incremental warm")[0]]
     models, prof = _profile(
         lambda: _builder(scene, opts, db=b.db).build_reconstruction(),
         "incr.")
@@ -1677,7 +1804,8 @@ def phase_incremental(scene):
 def phase_incremental_24():
     """The same at 24 views, pairs chosen by Fisher vectors (8 nearest
     neighbours and query expansion, as scripts/bench_e2e.py sets them at
-    24 views): the views' SIFT on the card, then one warm run."""
+    24 views): the views' SIFT on the card, then one run (the first at
+    this size)."""
     n = 24
     views, cams = render_synthetic_views(_texture(0), n, (640, 480),
                                          focal=600.0)
@@ -1697,7 +1825,7 @@ def phase_incremental_24():
         reconstruction_estimator_type="INCREMENTAL",
         select_image_pairs_with_global_descriptors=True,
         num_nearest_neighbors_for_global_descriptor_matching=8)
-    # the first run keeps the inputs of the first top2 call at each chunk
+    # the run keeps the inputs of the first top2 call at each chunk
     # shape; top2_match is then held against top2_plain on them
     chunks, real = {}, tfm.top2
 
@@ -1705,9 +1833,10 @@ def phase_incremental_24():
         chunks.setdefault(tuple(d1.shape),
                           (d1.clone(), d2.clone(), n2.clone()))
         return real(d1, d2, n2)
+    torch.cuda.reset_peak_memory_stats()
     tfm.top2 = keep
     try:
-        _incremental_run(scene, opts, "incremental_24 first")
+        run, _, _ = _builder_run(scene, opts, "incremental_24")
     finally:
         tfm.top2 = real
     chunk_check = {}
@@ -1717,8 +1846,6 @@ def phase_incremental_24():
                                 tfm.top2_plain(d1, d2, n2))
         chunk_check[what] = dict(max_abs_err=err, idx_diff_at_near_ties=ties)
     del chunks
-    torch.cuda.reset_peak_memory_stats()
-    run, _ = _incremental_run(scene, opts, "incremental_24")
     res = dict(views=n, all_pairs=n * (n - 1) // 2, sift_s=sift_s,
                gate=dict(views_min_share=INCR_VIEWS_MIN_SHARE,
                          reproj_max_px=INCR_REPROJ_MAX_PX),
@@ -1727,7 +1854,341 @@ def phase_incremental_24():
                nvidia_smi=nvidia_smi(), **run)
     emit("incremental_24", **res)
     return run["top2_match"], max(c["max_abs_err"]
-                                  for c in chunk_check.values())
+                                  for c in chunk_check.values()), scene
+
+
+# ------------------------------------------------------ global pipeline
+
+# The global phases' inputs and gates. The gates are JAX's worst readings
+# on the same inputs from tests/global_reference.py (JAX's pipelines on
+# the CPU, float32 as on a TPU, and x64 where it says; PERF.md, the
+# global cells).
+# global_1dsfm: bench_problem.build_city_scene at the 1DSfM Notre-Dame view
+# count (scripts/bench_global_stages.py) with seed 0, and at
+# tests/test_large_scale.py's size.
+CITY = (553, 14_000)
+CITY_SMALL = (200, 4_000)
+# At 553 views JAX's GlobalOptions() (seeds 0-2, float32 and x64: six
+# runs) averages the rotations to a median error of 0.166-0.367 deg and
+# places 551-553 views by LUD at a median position error of 1.10-2.13
+# units (of the 60-unit loop) before the first triangulation, which then
+# triangulates no track that survives, so no view is left: JAX misses
+# test_large_scale's rule (>= 95% of the views, median position error <
+# 0.3) there. The gate is JAX's worst reading of each pose-stage number
+# over those runs, rounded up at the third decimal; the final model is
+# printed, not gated. The LUD's reading is chaotic there: seed 0's scene,
+# the one this phase builds, reads 1.27 in float32 and 2.13 in x64.
+GLOBAL_POSES_VIEWS_MIN_SHARE = 551 / 553
+GLOBAL_POSES_ROT_MAX_DEG = 0.367
+GLOBAL_POSES_POS_MAX = 2.132
+# At 200 views JAX (seeds 0-9, float32) reconstructs 192-200 views at a
+# median position error of 0.0099-0.2401 units, and 0.527 at seed 9: the
+# gate is JAX's least views, 192, and test_large_scale's 0.3, which caps
+# JAX's worst position reading.
+GLOBAL_SMALL_VIEWS_MIN_SHARE = 192 / 200
+GLOBAL_SMALL_POS_MAX = 0.3
+# global_24 (ReconstructionBuilderOptions() on incremental_24's views and
+# Fisher-vector pairs) and hybrid (HYBRID on the 8 incremental views):
+# JAX's worst reading (views share, mean reprojection px, rounded up at
+# the third decimal). JAX's GLOBAL reconstructs 23-24 of the 24 views at
+# 0.1102-0.1295 px over seeds 0-9 (ten: its outcome is unstable, below).
+# Its HYBRID builds no model at seeds 3 and 6 of 0-9 (its seed pair's
+# verification lands on the planar twin, ROADMAP queue 3) and every
+# view at 0.1117-0.1146 px at the others: the gate is that of its models.
+GLOBAL24_GATE = (23 / 24, 0.130)
+HYBRID_GATE = (1.0, 0.115)
+# global_24's card run against the CPU from the card's database. The
+# translation refinement solves in float64 in both packages' stead
+# (global_pipeline._refine_relative_translations: in float32 its normal
+# matrix is singular up to the 1e-10 damping, and JAX's own float32 run
+# on one database lands elsewhere than its x64 run; tests/
+# global_reference.py --part global_24_db, ROADMAP queue 3), so the
+# float32 model is a function of its database. The card's float32 run is
+# held to the port's float32 rerun on the CPU from the card's database:
+# the same views, tracks within G24_CPU_TRACKS_REL, mean reprojection
+# errors within G24_CPU_REPROJ_REL and median rotation errors within
+# G24_CPU_ROT_DEG of each other; and its rotation averaging, rerun on
+# the CPU on the card's inputs, within G24_ROTATIONS_CPU_TOL rad.
+G24_ROTATIONS_CPU_TOL = 1e-4
+G24_CPU_TRACKS_REL = 0.05
+G24_CPU_REPROJ_REL = 0.01
+G24_CPU_ROT_DEG = 0.5
+
+
+def _city(n_views, n_points):
+    """bench_problem.build_city_scene(default_rng(0), ...) on the host,
+    pickled once (each run unpickles its own copy, faster than a
+    deepcopy of 0.5M observations), with its build seconds and sizes."""
+    t0 = time.perf_counter()
+    recon, graph, extrs = build_city_scene(np.random.default_rng(0),
+                                           n_views, n_points)
+    build_s = time.perf_counter() - t0
+    return dict(blob=pickle.dumps((recon, graph)), extrs=extrs,
+                build_s=build_s, views=n_views,
+                points=n_points, tracks=recon.num_tracks(),
+                observations=sum(len(v.features)
+                                 for v in recon.views.values()),
+                edges=graph.num_edges())
+
+
+class FilterSpy:
+    """Records, while active, the inputs and the keep or remove decisions
+    of the global pipeline's two angle filters (the rotation-cycle filter
+    and the orientation filter, both at 5 degrees; float32 on the card).
+    The records are references and a shallow copy of the edge map (the
+    cycle filter reads only each edge's rotation): `flips()`, called
+    after the run, reruns both filters on the CPU in float64 on those
+    inputs and counts the edges whose decision differs."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def __enter__(self):
+        self._orient = tgp.filter_view_pairs_from_orientation
+        self._cycle = tgp.filter_view_graph_cycles_by_rotation
+
+        def orient(*a, **k):
+            keep = self._orient(*a, **k)
+            self.calls["orientation"] = (a, dict(k), keep)
+            return keep
+
+        def cycle(graph, *a, **k):
+            before = dict(graph.edges())
+            n = self._cycle(graph, *a, **k)
+            self.calls["cycle"] = (before, a, dict(k), set(graph.edges()))
+            return n
+        tgp.filter_view_pairs_from_orientation = orient
+        tgp.filter_view_graph_cycles_by_rotation = cycle
+        return self
+
+    def __exit__(self, *exc):
+        tgp.filter_view_pairs_from_orientation = self._orient
+        tgp.filter_view_graph_cycles_by_rotation = self._cycle
+
+    def flips(self):
+        f64 = dict(dtype=torch.float64, device="cpu")
+        out = {}
+        if "orientation" in self.calls:
+            a, k, keep = self.calls["orientation"]
+            out["orientation"] = int(np.sum(keep != self._orient(
+                *a, **{**k, **f64})))
+        if "cycle" in self.calls:
+            before, a, k, kept = self.calls["cycle"]
+            ref = ViewGraph()
+            for (v1, v2), info in before.items():
+                ref.add_edge(v1, v2, info)
+            self._cycle(ref, *a, **{**k, **f64})
+            out["cycle"] = len(kept ^ set(ref.edges()))
+        return out
+
+
+def _global_run(city, what, profile=False, filter_spy=False):
+    """global_reconstruction with GlobalOptions() on the card, on a copy
+    of the city's reconstruction and view graph: wall seconds (ends in a
+    synchronize), the summary's stage seconds, the counts of exactly
+    this run, the cameras' reading before the first triangulation
+    (PoseSpy) and the final model's (city_report), peak memory; with
+    `profile`, under _profile and its summary of the global.* ranges;
+    with `filter_spy`, the angle filters' float32 flips (FilterSpy).
+    Both spies only record inside the timed window; their readings and
+    the float64 reruns come after it."""
+    recon, graph = pickle.loads(city["blob"])
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    reset_dispatch_counts()
+    prof = None
+
+    def run():
+        return tgp.global_reconstruction(recon, graph, tgp.GlobalOptions())
+    fspy = FilterSpy() if filter_spy else None
+    with PoseSpy(tgp, city["extrs"]) as spy, \
+            fspy or contextlib.nullcontext():
+        if profile:
+            summary, prof = _profile(run, "global.")
+            sec = prof["wall_s"]
+        else:
+            summary, sec = sync_time(run)
+    counts = dispatch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(summary["success"], f"{what}: {summary}")
+    check(spy.report is not None, f"{what}: no pose reached triangulation")
+    for v in recon.estimated_views():
+        check(np.isfinite(recon.views[v].camera.extrinsics).all(),
+              f"{what}: non-finite camera")
+    return dict(wall_s=sec, timings=summary["timings"],
+                device_dispatches=counts, peak_device_gib=peak,
+                peak_above_held_gib=peak - held, poses=spy.report,
+                filter_flips_vs_cpu_f64=fspy.flips() if fspy else None,
+                **city_report(recon, city["extrs"])), prof
+
+
+def _check_poses(run, n_views, what):
+    p = run["poses"]
+    check(p["views_estimated"] >= GLOBAL_POSES_VIEWS_MIN_SHARE * n_views
+          and p.get("median_rotation_err_deg", np.inf) <=
+          GLOBAL_POSES_ROT_MAX_DEG
+          and p.get("median_position_err", np.inf) <= GLOBAL_POSES_POS_MAX,
+          f"{what}: pose gate (>= {GLOBAL_POSES_VIEWS_MIN_SHARE:.4f} of the "
+          f"views, median rotation <= {GLOBAL_POSES_ROT_MAX_DEG} deg, "
+          f"median position <= {GLOBAL_POSES_POS_MAX}) failed: {p}")
+
+
+def phase_global_1dsfm():
+    """The global pipeline at full width: build_city_scene at 553 views
+    (14,000 points, 0.5 px, 5% outlier edges) through
+    global_reconstruction with GlobalOptions() in float32 on the card,
+    one cold run, one warm and one profiled; then at 200 views (4,000
+    points), where JAX reconstructs, once."""
+    city = _city(*CITY)
+    sizes = {k: city[k] for k in ("views", "points", "tracks",
+                                  "observations", "edges", "build_s")}
+    cold, _ = _global_run(city, "global_1dsfm cold", filter_spy=True)
+    warm, _ = _global_run(city, "global_1dsfm warm")
+    profiled, prof = _global_run(city, "global_1dsfm profiled",
+                                 profile=True)
+    emit("global_1dsfm_profile", **prof)
+    for run, what in ((cold, "cold"), (warm, "warm"),
+                      (profiled, "profiled")):
+        _check_poses(run, CITY[0], f"global_1dsfm {what}")
+    del city
+    small = _city(*CITY_SMALL)
+    small_run, _ = _global_run(small, "global_1dsfm 200 views")
+    check(small_run["views_estimated"] >=
+          GLOBAL_SMALL_VIEWS_MIN_SHARE * CITY_SMALL[0] and
+          small_run.get("median_position_err", np.inf) <
+          GLOBAL_SMALL_POS_MAX,
+          f"global_1dsfm 200 views: gate (>= "
+          f"{GLOBAL_SMALL_VIEWS_MIN_SHARE:.3f} of the views, median "
+          f"position < {GLOBAL_SMALL_POS_MAX}) failed: {small_run}")
+    res = dict(options="GlobalOptions()", scene=sizes, cold=cold,
+               warm=warm, profiled_wall_s=profiled["wall_s"],
+               gate=dict(poses_views_min_share=GLOBAL_POSES_VIEWS_MIN_SHARE,
+                         poses_rotation_max_deg=GLOBAL_POSES_ROT_MAX_DEG,
+                         poses_position_max=GLOBAL_POSES_POS_MAX,
+                         small_views_min_share=GLOBAL_SMALL_VIEWS_MIN_SHARE,
+                         small_position_max=GLOBAL_SMALL_POS_MAX),
+               small=dict(scene={k: small[k] for k in sizes}, **small_run),
+               nvidia_smi=nvidia_smi())
+    emit("global_1dsfm", **res)
+    return res
+
+
+class RotationSpy:
+    """Records, while active, the inputs and output of the global
+    pipeline's robust_rotation_averaging (the last call); `cpu_diff()`,
+    called after the run, reruns it on the CPU in the same dtype on
+    those inputs and returns the largest angle-axis difference (rad)."""
+
+    def __enter__(self):
+        self._real = tgp.robust_rotation_averaging
+        self.call = None
+
+        def spy(*a, **k):
+            out = self._real(*a, **k)
+            self.call = (a, dict(k), np.asarray(out))
+            return out
+        tgp.robust_rotation_averaging = spy
+        return self
+
+    def __exit__(self, *exc):
+        tgp.robust_rotation_averaging = self._real
+
+    def cpu_diff(self):
+        a, k, out = self.call
+        ref = self._real(*a, **{**k, "device": "cpu"})
+        return float(np.max(np.abs(out - np.asarray(ref))))
+
+
+def _model_views(model):
+    return sorted(model.views[v].name for v in model.estimated_views())
+
+
+def _db_fingerprint(db):
+    """A digest of the database's verified matches (pairs,
+    correspondences to 1e-3 px, relative rotations to 1e-4) and their
+    count: equal digests mean the same input to the estimator."""
+    h, n = hashlib.sha1(), 0
+    for a, b in sorted(db.image_pairs_of_matches()):
+        m = db.get_match(a, b)
+        h.update(f"{a}/{b}".encode())
+        h.update(np.round(np.asarray(m.correspondences, np.float64), 3)
+                 .tobytes())
+        h.update(np.round(np.asarray(m.twoview_info.rotation_2,
+                                     np.float64), 4).tobytes())
+        n += len(m.correspondences)
+    return h.hexdigest()[:12], n
+
+
+def phase_global_24(scene):
+    """From pixels with the builder's default options (GLOBAL) on
+    incremental_24's views and card features, Fisher-vector pairs (8
+    neighbours): one run on the card (float32), its rotation averaging
+    rerun on the CPU on the card's inputs, then the same build on the CPU
+    from the card's database."""
+    opts = ReconstructionBuilderOptions(
+        select_image_pairs_with_global_descriptors=True,
+        num_nearest_neighbors_for_global_descriptor_matching=8)
+    check(opts.reconstruction_estimator_type == "GLOBAL",
+          "the builder's default estimator is not GLOBAL")
+    torch.cuda.reset_peak_memory_stats()
+    with RotationSpy() as rspy:
+        run, b, models = _builder_run(scene, opts, "global_24",
+                                      gate=GLOBAL24_GATE, seed_module=None)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    check(rspy.call is not None, "global_24: no rotation averaging")
+    rot_diff = rspy.cpu_diff()
+    check(rot_diff <= G24_ROTATIONS_CPU_TOL,
+          f"global_24: the card's rotation averaging is {rot_diff} rad "
+          f"from the CPU's on the same inputs (> {G24_ROTATIONS_CPU_TOL})")
+    cpu_models, cpu_s = sync_time(_builder(scene, opts, device="cpu",
+                                           db=b.db).build_reconstruction)
+    check(len(cpu_models) >= 1, "global_24 on the CPU: no model")
+    cpu = dict(reconstruct_s=cpu_s, models=len(cpu_models),
+               **model_report(cpu_models[0], scene["cams"]))
+    rel = dict(
+        tracks=abs(cpu["tracks_estimated"] /
+                   max(run["tracks_estimated"], 1) - 1),
+        reproj=abs((cpu["reproj_mean_px"] or np.inf) /
+                   run["reproj_mean_px"] - 1),
+        rotation_deg=abs(cpu["median_rotation_err_deg"] -
+                         run["median_rotation_err_deg"]))
+    check(_model_views(cpu_models[0]) == _model_views(models[0]) and
+          rel["tracks"] <= G24_CPU_TRACKS_REL and
+          rel["reproj"] <= G24_CPU_REPROJ_REL and
+          rel["rotation_deg"] <= G24_CPU_ROT_DEG,
+          f"global_24: the CPU's build from the card's database differs "
+          f"from the card's (the same views, tracks within "
+          f"{G24_CPU_TRACKS_REL}, reprojection within {G24_CPU_REPROJ_REL}"
+          f", rotation error within {G24_CPU_ROT_DEG} deg): {rel} {cpu}")
+    res = dict(views=len(scene["names"]),
+               options="ReconstructionBuilderOptions() (GLOBAL), "
+               "Fisher-vector pairs",
+               gate=dict(views_min_share=GLOBAL24_GATE[0],
+                         reproj_max_px=GLOBAL24_GATE[1],
+                         rotations_cpu_tol_rad=G24_ROTATIONS_CPU_TOL,
+                         cpu_tracks_rel=G24_CPU_TRACKS_REL,
+                         cpu_reproj_rel=G24_CPU_REPROJ_REL,
+                         cpu_rotation_deg=G24_CPU_ROT_DEG),
+               db_fingerprint=_db_fingerprint(b.db),
+               peak_device_gib=peak, rotations_vs_cpu_rad=rot_diff,
+               cpu_vs_card=rel, cpu_from_card_db=cpu,
+               nvidia_smi=nvidia_smi(), **run)
+    emit("global_24", **res)
+    return run["top2_match"]
+
+
+def phase_hybrid(scene):
+    """From pixels with ReconstructionBuilder(HYBRID) on the `frontend`
+    views' card features: one run."""
+    opts = ReconstructionBuilderOptions(
+        reconstruction_estimator_type="HYBRID")
+    run, _, _ = _builder_run(scene, opts, "hybrid", gate=HYBRID_GATE,
+                             seed_module=None)
+    emit("hybrid", views=len(scene["names"]),
+         options="ReconstructionBuilderOptions(HYBRID)",
+         gate=dict(views_min_share=HYBRID_GATE[0],
+                   reproj_max_px=HYBRID_GATE[1]),
+         nvidia_smi=nvidia_smi(), **run)
 
 
 # ----------------------------------------------------------------- main
@@ -1752,7 +2213,10 @@ def main():
     n_batched, n_pair, scene = phase_frontend()
     phase_frontend_verify(scene)
     n_incr, _ = phase_incremental(scene)
-    n_incr24, err_incr24 = phase_incremental_24()
+    n_incr24, err_incr24, scene24 = phase_incremental_24()
+    phase_global_1dsfm()
+    n_global24 = phase_global_24(scene24)
+    phase_hybrid(scene)
 
     summary = []
     for (name, layout), replaces in REPLACES.items():
@@ -1782,6 +2246,7 @@ def main():
             ("top2_match", "frontend", 120, n_batched,
              dict(incremental_launches=n_incr,
                   incremental_24_launches=n_incr24,
+                  global_24_launches=n_global24,
                   incremental_24_max_abs_err=max(
                       err_incr24, mres["incremental_24"]["max_abs_err"],
                       mres["incremental_24_last"]["max_abs_err"]))),

@@ -304,52 +304,51 @@ def test_rest_of_ba_runs_without_jax():
     assert out.stdout.strip().endswith("ok")
 
 
-def test_builder_runs_without_jax():
-    """With jax and theiasfm_tpu unimportable: the reconstruction
-    builder from injected matches of a 6-view synthetic scene, the
-    INCREMENTAL estimator on the CPU (P3P localization, track
-    estimation, BA, filters), and the Fisher-vector extractor; nothing
-    is built or loaded."""
-    code = textwrap.dedent("""
-        import sys
-        for name in ("jax", "jaxlib", "theiasfm_tpu"):
-            sys.modules[name] = None
-        import numpy as np
-        import torch
-        from theiasfm_tpu_torch import _kernels
-        from theiasfm_tpu_torch.convert import features_db_from_arrays
-        from theiasfm_tpu_torch.math import rotation as rot
-        from theiasfm_tpu_torch.matching import ImagePairMatch
-        from theiasfm_tpu_torch.matching.fisher_vector import (
-            FisherVectorExtractor, FisherVectorOptions)
-        from theiasfm_tpu_torch.sfm.reconstruction_builder import (
-            ReconstructionBuilder, ReconstructionBuilderOptions)
-        from theiasfm_tpu_torch.sfm.view_graph import TwoViewInfo
-        rng = np.random.default_rng(0)
-        pts = rng.uniform(-2.5, 2.5, size=(100, 3))
-        Rs, cs, obs = [], [], []
-        for v in range(6):
-            a = 0.9 * (v / 5 - 0.5)
-            c = np.array([8 * np.sin(a), 0.3 * rng.normal(),
-                          -8 * np.cos(a)])
-            z = -c / np.linalg.norm(c)
-            x = np.cross([0, 1, 0], z)
-            x /= np.linalg.norm(x)
-            R = np.stack([x, np.cross(z, x), z])
-            pc = (pts - c) @ R.T
-            obs.append(700 * pc[:, :2] / pc[:, 2:] + 400 +
-                       rng.normal(scale=0.3, size=(100, 2)))
-            Rs.append(R)
-            cs.append(c)
-        names = [f"v{v}" for v in range(6)]
+# A 6-view synthetic scene handed to the port's builder as injected
+# matches (code run in a subprocess with JAX unimportable):
+# `builder(options)` returns a ReconstructionBuilder on the CPU with the
+# scene's views, features and true pairwise geometry.
+_SIX_VIEWS = textwrap.dedent("""
+    import sys
+    for name in ("jax", "jaxlib", "theiasfm_tpu"):
+        sys.modules[name] = None
+    import numpy as np
+    import torch
+    from theiasfm_tpu_torch import _kernels
+    from theiasfm_tpu_torch.convert import features_db_from_arrays
+    from theiasfm_tpu_torch.math import rotation as rot
+    from theiasfm_tpu_torch.matching import ImagePairMatch
+    from theiasfm_tpu_torch.sfm.reconstruction_builder import (
+        ReconstructionBuilder, ReconstructionBuilderOptions)
+    from theiasfm_tpu_torch.sfm.view_graph import TwoViewInfo
+    torch.set_num_threads(1)   # small tensors; the suite runs in parallel
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(-2.5, 2.5, size=(100, 3))
+    Rs, cs, obs = [], [], []
+    for v in range(6):
+        a = 0.9 * (v / 5 - 0.5)
+        c = np.array([8 * np.sin(a), 0.3 * rng.normal(),
+                      -8 * np.cos(a)])
+        z = -c / np.linalg.norm(c)
+        x = np.cross([0, 1, 0], z)
+        x /= np.linalg.norm(x)
+        R = np.stack([x, np.cross(z, x), z])
+        pc = (pts - c) @ R.T
+        obs.append(700 * pc[:, :2] / pc[:, 2:] + 400 +
+                   rng.normal(scale=0.3, size=(100, 2)))
+        Rs.append(R)
+        cs.append(c)
+    names = [f"v{v}" for v in range(6)]
+    descriptors = {n: rng.random((100, 128)).astype(np.float32)
+                   for n in names}
+
+    def builder(options, dtype=torch.float32):
         db = features_db_from_arrays(
-            {n: (np.concatenate([o, np.ones((100, 2))], 1),
-                 rng.random((100, 128)).astype(np.float32))
+            {n: (np.concatenate([o, np.ones((100, 2))], 1), descriptors[n])
              for n, o in zip(names, obs)},
             {n: dict(image_width=800, image_height=800, focal_length=700.0,
                      principal_point=(400.0, 400.0)) for n in names})
-        b = ReconstructionBuilder(ReconstructionBuilderOptions(
-            reconstruction_estimator_type="INCREMENTAL"), db, device="cpu")
+        b = ReconstructionBuilder(options, db, dtype=dtype, device="cpu")
         for i in range(6):
             for j in range(i + 1, 6):
                 pos = Rs[i] @ (cs[j] - cs[i])
@@ -360,7 +359,36 @@ def test_builder_runs_without_jax():
                 b.add_two_view_match(names[i], names[j], ImagePairMatch(
                     names[i], names[j], info,
                     np.concatenate([obs[i], obs[j]], 1)))
-        models = b.build_reconstruction()
+        return b
+""")
+
+_NOTHING_BUILT = textwrap.dedent("""
+    assert _kernels.build.cache_info().currsize == 0
+    assert not any(m == "jax" or m.startswith(("jax.", "theiasfm_tpu."))
+                   for m, v in sys.modules.items() if v is not None)
+    print("ok")
+""")
+
+
+def _run(code):
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_builder_runs_without_jax():
+    """With jax and theiasfm_tpu unimportable: the reconstruction
+    builder from injected matches of a 6-view synthetic scene, the
+    INCREMENTAL estimator on the CPU (P3P localization, track
+    estimation, BA, filters), and the Fisher-vector extractor; nothing
+    is built or loaded."""
+    _run(_SIX_VIEWS + textwrap.dedent("""
+        from theiasfm_tpu_torch.matching.fisher_vector import (
+            FisherVectorExtractor, FisherVectorOptions)
+        models = builder(ReconstructionBuilderOptions(
+            reconstruction_estimator_type="INCREMENTAL")
+        ).build_reconstruction()
         assert len(models) == 1, models
         assert len(models[0].estimated_views()) == 6
         assert len(models[0].estimated_tracks()) > 80
@@ -370,15 +398,86 @@ def test_builder_runs_without_jax():
         fv.train(rng.random((50, 8)))
         assert np.isfinite(fv.extract_global_descriptor(
             rng.random((10, 8)))).all()
-        assert _kernels.build.cache_info().currsize == 0
-        assert not any(m == "jax" or m.startswith(("jax.", "theiasfm_tpu."))
-                       for m, v in sys.modules.items() if v is not None)
-        print("ok")
-    """)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr
-    assert out.stdout.strip().endswith("ok")
+    """) + _NOTHING_BUILT)
+
+
+@pytest.mark.parametrize("kind", ["GLOBAL", "HYBRID"])
+def test_global_and_hybrid_builders_run_without_jax(kind):
+    """With jax and theiasfm_tpu unimportable: the builder's default
+    options (GLOBAL: rotation averaging, the view-graph filters, LUD
+    positions, triangulation, BA) and HYBRID, from the 6-view scene's
+    injected matches on the CPU; nothing is built or loaded. GLOBAL
+    builds in float64: in float32 its LUD lands 2% of the scene from the
+    float64 positions on this low-noise scene and no track passes the
+    5 px gate, in JAX's float32 build too (ROADMAP queue 3)."""
+    _run(_SIX_VIEWS + textwrap.dedent(f"""
+        options = ReconstructionBuilderOptions() if "{kind}" == "GLOBAL" \
+            else ReconstructionBuilderOptions(
+                reconstruction_estimator_type="{kind}")
+        assert options.reconstruction_estimator_type == "{kind}"
+        dtype = torch.float64 if "{kind}" == "GLOBAL" else torch.float32
+        models = builder(options, dtype).build_reconstruction()
+        assert len(models) == 1, models
+        assert len(models[0].estimated_views()) == 6
+        assert len(models[0].estimated_tracks()) > 80
+    """) + _NOTHING_BUILT)
+
+
+def test_global_entry_points_raise_without_card():
+    """The global and hybrid pipelines and the modules they build on
+    default to the card and refuse to fall back to the CPU; on the CPU
+    when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+    from theiasfm_tpu_torch.sfm import global_pose as gp
+    from theiasfm_tpu_torch.sfm.global_pose.cycle_filter import (
+        filter_view_graph_cycles_by_rotation)
+    from theiasfm_tpu_torch.sfm.pipeline import (
+        GlobalOptions, HybridOptions, LocalizeOptions, global_reconstruction,
+        hybrid_reconstruction)
+    from theiasfm_tpu_torch.sfm.pipeline.hybrid import (
+        localize_views_known_orientation_batch)
+    from theiasfm_tpu_torch.sfm.pipeline.select_good_tracks import (
+        select_good_tracks_for_bundle_adjustment)
+    from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
+    from theiasfm_tpu_torch.sfm.reconstruction_builder import (
+        ReconstructionBuilder, ReconstructionBuilderOptions)
+    from theiasfm_tpu_torch.sfm.view_graph import ViewGraph
+    from theiasfm_tpu_torch.solvers import exhaustive_pair_samples
+    rec = Reconstruction()
+    rec.add_view("v0")
+    edges = np.array([[0, 1], [1, 2], [0, 2]])
+    aa = np.zeros((3, 3))
+    g = torch.Generator()
+    calls = [
+        lambda **k: global_reconstruction(rec, ViewGraph(), GlobalOptions(),
+                                          **k),
+        lambda **k: hybrid_reconstruction(rec, ViewGraph(), HybridOptions(),
+                                          **k),
+        lambda **k: gp.robust_rotation_averaging(aa, edges, aa, **k),
+        lambda **k: gp.linear_rotation_averaging(3, edges, aa, **k),
+        lambda **k: gp.filter_view_pairs_from_orientation(aa, edges, aa,
+                                                          **k),
+        lambda **k: gp.filter_view_pairs_from_relative_translation(
+            aa, edges, np.eye(3), **k),
+        lambda **k: gp.estimate_positions_lud(aa, edges, np.eye(3), **k),
+        lambda **k: gp.estimate_positions_nonlinear(aa, edges, np.eye(3),
+                                                    **k),
+        lambda **k: filter_view_graph_cycles_by_rotation(ViewGraph(), **k),
+        lambda **k: localize_views_known_orientation_batch(
+            g, rec, [0], LocalizeOptions(), **k),
+        lambda **k: select_good_tracks_for_bundle_adjustment(rec, **k),
+        lambda **k: exhaustive_pair_samples(4, 8, **k),
+        lambda **k: ReconstructionBuilder(ReconstructionBuilderOptions(),
+                                          **k),
+        lambda **k: ReconstructionBuilder(ReconstructionBuilderOptions(
+            reconstruction_estimator_type="HYBRID"), **k)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for call in calls:
+        call(device="cpu")
 
 
 def test_incremental_entry_points_raise_without_card():

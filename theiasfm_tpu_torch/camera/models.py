@@ -30,6 +30,7 @@ import enum
 import torch
 
 from ..math import rotation as rot
+from ..utils import linalg
 
 
 class CameraModelType(enum.IntEnum):
@@ -139,6 +140,48 @@ def distort(model_type: CameraModelType, intr, xy):
     return _DISTORT[CameraModelType(model_type)](intr, xy)
 
 
+def _undistort_fov(intr, xy):
+    omega = intr[..., 5:6]
+    rd = torch.linalg.norm(xy, dim=-1, keepdim=True)
+    small_w = torch.abs(omega) < 1e-6
+    safe_w = _where(small_w, 1.0, omega)
+    tan_half = torch.tan(safe_w * 0.5)
+    rd_safe = _where(rd < 1e-12, 1.0, rd)
+    ru = torch.tan(rd * safe_w) / (2.0 * tan_half)
+    scale = _where(small_w | (rd < 1e-12), 1.0, ru / rd_safe)
+    return xy * scale
+
+
+def _undistort_division(intr, xy):
+    k = intr[..., 5:6]
+    r2 = torch.sum(xy * xy, dim=-1, keepdim=True)
+    return xy / (1.0 + k * r2)
+
+
+def undistort(model_type: CameraModelType, intr, xy, iters: int = 25):
+    """Normalized distorted -> undistorted. Closed form for FOV/division;
+    fixed-iteration Newton with the true 2x2 Jacobian (torch.func.jacfwd)
+    otherwise."""
+    mt = CameraModelType(model_type)
+    if mt == CameraModelType.FOV:
+        return _undistort_fov(intr, xy)
+    if mt == CameraModelType.DIVISION_UNDISTORTION:
+        return _undistort_division(intr, xy)
+
+    fwd = _DISTORT[mt]
+    jac = torch.func.vmap(torch.func.jacfwd(lambda u, i: fwd(i, u)))
+    flat_intr = intr.expand(xy.shape[:-1] + intr.shape[-1:]).reshape(
+        -1, intr.shape[-1])
+    u = xy
+    for _ in range(iters):
+        # Newton on F(u) = fwd(u) - xy
+        J = jac(u.reshape(-1, 2), flat_intr)                 # (B, 2, 2)
+        F = (fwd(intr, u) - xy).reshape(-1, 2)
+        delta = linalg.solve(J, F[..., None])[..., 0]
+        u = u - delta.reshape(u.shape)
+    return u
+
+
 # ---------------------------------------------------------------------------
 # Pixel mapping
 # ---------------------------------------------------------------------------
@@ -150,6 +193,15 @@ def _apply_calibration(intr, xy):
     px = fx * xy[..., 0] + skew * xy[..., 1] + intr[..., PP_X]
     py = fy * xy[..., 1] + intr[..., PP_Y]
     return torch.stack([px, py], dim=-1)
+
+
+def _remove_calibration(intr, pixel):
+    fx = intr[..., FOCAL]
+    fy = fx * intr[..., ASPECT]
+    skew = intr[..., SKEW]
+    y = (pixel[..., 1] - intr[..., PP_Y]) / fy
+    x = (pixel[..., 0] - intr[..., PP_X] - skew * y) / fx
+    return torch.stack([x, y], dim=-1)
 
 
 def pixel_from_camera_point(model_type, intr, p_cam):
@@ -174,3 +226,20 @@ def project(model_type, extrinsics, intr, point):
     jacobians drive bundle adjustment."""
     return pixel_from_camera_point(model_type, intr,
                                    world_to_camera(extrinsics, point))
+
+
+def pixel_to_normalized_ray(model_type, intr, pixel):
+    """Pixel -> undistorted normalized image coords (z=1 direction)."""
+    xy_d = _remove_calibration(intr, pixel)
+    return undistort(model_type, intr, xy_d)
+
+
+def pixel_to_world_ray(model_type, extrinsics, intr, pixel):
+    """Pixel -> (origin (...,3), unit direction (...,3)) in world frame."""
+    xy = pixel_to_normalized_ray(model_type, intr, pixel)
+    d_cam = torch.cat([xy, torch.ones_like(xy[..., :1])], dim=-1)
+    R = rot.angle_axis_to_rotation_matrix(extrinsics[..., 3:6])
+    d_world = torch.einsum("...ji,...j->...i", R, d_cam)
+    d_world = d_world / torch.linalg.norm(d_world, dim=-1, keepdim=True)
+    origin = extrinsics[..., 0:3].expand(d_world.shape)
+    return origin, d_world

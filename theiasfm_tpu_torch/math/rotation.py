@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import linalg
+
 _EPS = 1e-12
 
 
@@ -122,3 +124,74 @@ def rotation_matrix_to_angle_axis(R):
     """rotation matrix (..., 3, 3) -> angle-axis (..., 3), via the
     quaternion for stability near theta = 0 and theta = pi."""
     return quaternion_to_angle_axis(rotation_matrix_to_quaternion(R))
+
+
+def quaternion_to_rotation_matrix(q):
+    """Unit quaternion (..., 4) [w, x, y, z] -> (..., 3, 3)."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y),
+            2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x),
+            2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y),
+        ],
+        dim=-1,
+    ).reshape(q.shape[:-1] + (3, 3))
+
+
+def angle_axis_to_quaternion(aa):
+    theta = _theta(aa)[..., 0]
+    half = 0.5 * theta
+    small = theta < 1e-6
+    safe_theta = torch.where(small, torch.ones_like(theta), theta)
+    k = torch.where(small, torch.full_like(theta, 0.5),
+                    torch.sin(half) / safe_theta)
+    w = torch.cos(half)
+    return torch.cat([w[..., None], aa * k[..., None]], dim=-1)
+
+
+def quaternion_multiply(q1, q2):
+    w1, v1 = q1[..., :1], q1[..., 1:]
+    w2, v2 = q2[..., :1], q2[..., 1:]
+    w = w1 * w2 - torch.sum(v1 * v2, dim=-1, keepdim=True)
+    v1, v2 = torch.broadcast_tensors(v1, v2)
+    v = w1 * v2 + w2 * v1 + torch.linalg.cross(v1, v2, dim=-1)
+    return torch.cat([w.expand(v.shape[:-1] + (1,)), v], dim=-1)
+
+
+def multiply_rotations(aa1, aa2):
+    """Compose angle-axis rotations: result = R(aa1) @ R(aa2), in aa form."""
+    q1 = angle_axis_to_quaternion(aa1)
+    q2 = angle_axis_to_quaternion(aa2)
+    return quaternion_to_angle_axis(quaternion_multiply(q1, q2))
+
+
+def relative_rotation(aa_1, aa_2):
+    """Angle-axis of R_2 @ R_1^T (rotation from frame 1 to frame 2)."""
+    R1 = angle_axis_to_rotation_matrix(aa_1)
+    R2 = angle_axis_to_rotation_matrix(aa_2)
+    return rotation_matrix_to_angle_axis(R2 @ R1.transpose(-1, -2))
+
+
+def rotation_angle_deg(aa):
+    return torch.rad2deg(_theta(aa)[..., 0])
+
+
+def rotation_error_deg(aa_a, aa_b):
+    """Angular distance in degrees between two angle-axis rotations."""
+    Ra = angle_axis_to_rotation_matrix(aa_a)
+    Rb = angle_axis_to_rotation_matrix(aa_b)
+    rel = Ra @ Rb.transpose(-1, -2)
+    tr = torch.diagonal(rel, dim1=-2, dim2=-1).sum(-1)
+    cos = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
+    return torch.rad2deg(torch.arccos(cos))
+
+
+def project_to_rotation_matrix(M):
+    """Nearest rotation matrix to (..., 3, 3) M via SVD (det +1
+    enforced)."""
+    U, _, Vt = linalg.svd(M)
+    D = torch.ones(M.shape[:-2] + (3,), dtype=M.dtype, device=M.device)
+    D[..., 2] = linalg.det3(U @ Vt)
+    return (U * D[..., None, :]) @ Vt

@@ -1,9 +1,7 @@
 """Reconstruction pipelines (port of theiasfm_tpu/sfm/pipeline/).
 Exports what the JAX package's exports: two-view estimation, geometric
-verification, track estimation, localization, the filters and the
-incremental pipeline run; the global and hybrid pipelines export their
-options, and their entry points raise NotImplementedError until slice C
-(ROADMAP.md, queue 1)."""
+verification, track estimation, localization, the filters, and the
+incremental, global and hybrid pipelines."""
 from .twoview import (  # noqa: F401
     estimate_twoview_info, estimate_twoview_info_batch, TwoViewInfoOptions,
 )

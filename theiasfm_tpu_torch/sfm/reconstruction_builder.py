@@ -13,9 +13,8 @@ passes "cpu"): SIFT, the Fisher-vector pair selection, the feature
 matcher with its verification, and the reconstruction estimator, in
 `dtype` (float32 by default). Images already in the database are not
 read again, so a caller can hand the builder extracted features
-(convert.features_db_from_arrays) without PIL. Only the INCREMENTAL
-estimator is ported; GLOBAL (the default, as in the JAX module) and
-HYBRID raise NotImplementedError until slice C (ROADMAP.md, queue 1).
+(convert.features_db_from_arrays) without PIL. The estimator is
+GLOBAL by default (as in the JAX module), INCREMENTAL or HYBRID.
 """
 from __future__ import annotations
 
@@ -211,15 +210,17 @@ class ReconstructionBuilder:
         while graph.num_views() >= 3:
             if self.options.reconstruction_estimator_type == "GLOBAL":
                 summary = global_reconstruction(
-                    recon, graph, self.options.global_options)
+                    recon, graph, self.options.global_options,
+                    dtype=self.dtype, device=self.device)
             elif self.options.reconstruction_estimator_type == \
                     "INCREMENTAL":
                 summary = incremental_reconstruction(
                     recon, graph, self.options.incremental_options,
                     dtype=self.dtype, device=self.device)
             else:
-                summary = hybrid_reconstruction(recon, graph,
-                                                HybridOptions())
+                summary = hybrid_reconstruction(
+                    recon, graph, HybridOptions(), dtype=self.dtype,
+                    device=self.device)
             if not summary.get("success") or \
                     summary.get("num_estimated_views", 0) < 3:
                 break

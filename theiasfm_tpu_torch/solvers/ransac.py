@@ -29,6 +29,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from ..utils.device import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class RansacOptions:
@@ -123,11 +125,12 @@ def prosac_samples(generator, num_data, sample_size, num_hypotheses,
         num_data, sample_size, num_hypotheses, generator.device))
 
 
-def exhaustive_pair_samples(num_data, num_hypotheses, device="cpu"):
+def exhaustive_pair_samples(num_data, num_hypotheses, device="cuda"):
     """All (i, j) pairs, row-major, truncated/repeated to the budget
-    (ref exhaustive_sampler.h supports sample_size 2)."""
+    (ref exhaustive_sampler.h supports sample_size 2), on `device` (the
+    card unless the caller passes "cpu")."""
     idx = torch.triu_indices(num_data, num_data, offset=1,
-                             device=device).T
+                             device=resolve_device(device)).T
     reps = -(-num_hypotheses // idx.shape[0])
     return idx.repeat(reps, 1)[:num_hypotheses]
 
