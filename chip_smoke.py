@@ -97,6 +97,24 @@ from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
 from theiasfm_tpu_torch.sfm.view_graph import ViewGraph
 from theiasfm_tpu_torch.sfm.reconstruction_builder import (
     ReconstructionBuilder, ReconstructionBuilderOptions)
+from theiasfm_tpu_torch import solver_problems as sp
+from theiasfm_tpu_torch.sfm.estimators import (
+    estimate_radial_distortion_homography, estimate_rigid_transform,
+    estimate_similarity_transform_2d_3d, estimate_triangulation,
+    estimate_uncalibrated_absolute_pose, estimate_uncalibrated_relative_pose,
+    relative_pose_spec)
+from theiasfm_tpu_torch.sfm.estimators.transforms import (
+    estimate_dominant_plane_from_points)
+from theiasfm_tpu_torch.sfm.estimators.uncalibrated import (
+    uncalibrated_absolute_pose_spec)
+from theiasfm_tpu_torch.sfm.pose import (radial_homography_symmetric_error_sq,
+                                         relative_pose_from_essential)
+from theiasfm_tpu_torch.solvers import (RansacOptions,
+                                        exhaustive_pair_samples,
+                                        random_samples, ransac_batch)
+from theiasfm_tpu_torch.solvers.evsac import (evsac_probabilities,
+                                              weighted_samples)
+from theiasfm_tpu_torch.utils.device import full_f32
 from theiasfm_tpu_torch.utils import (dispatch_counts, next_bucket,
                                       reset_dispatch_counts)
 
@@ -2033,13 +2051,12 @@ def _check_poses(run, n_views, what):
           f"median position <= {GLOBAL_POSES_POS_MAX}) failed: {p}")
 
 
-def phase_global_1dsfm():
+def phase_global_1dsfm(city):
     """The global pipeline at full width: build_city_scene at 553 views
-    (14,000 points, 0.5 px, 5% outlier edges) through
-    global_reconstruction with GlobalOptions() in float32 on the card,
-    one cold run, one warm and one profiled; then at 200 views (4,000
-    points), where JAX reconstructs, once."""
-    city = _city(*CITY)
+    (14,000 points, 0.5 px, 5% outlier edges; `city`, from _city)
+    through global_reconstruction with GlobalOptions() in float32 on the
+    card, one cold run, one warm and one profiled; then at 200 views
+    (4,000 points), where JAX reconstructs, once."""
     sizes = {k: city[k] for k in ("views", "points", "tracks",
                                   "observations", "edges", "build_s")}
     cold, _ = _global_run(city, "global_1dsfm cold", filter_spy=True)
@@ -2050,7 +2067,6 @@ def phase_global_1dsfm():
     for run, what in ((cold, "cold"), (warm, "warm"),
                       (profiled, "profiled")):
         _check_poses(run, CITY[0], f"global_1dsfm {what}")
-    del city
     small = _city(*CITY_SMALL)
     small_run, _ = _global_run(small, "global_1dsfm 200 views")
     check(small_run["views_estimated"] >=
@@ -2191,6 +2207,591 @@ def phase_hybrid(scene):
          nvidia_smi=nvidia_smi(), **run)
 
 
+# ------------------------------------------------------- solvers (D1)
+
+# The solver phases' inputs: the `frontend` views' features matched on
+# the card (symmetric ratio test, the top2_match kernel) with each
+# match's top-2 descriptor distances, in pixels centred on the principal
+# point; synthetic problems from theiasfm_tpu_torch/solver_problems.py.
+PP = (320.0, 240.0)
+FOCAL = 600.0
+UNCAL_REL_OPTS = RansacOptions(error_thresh=2.0 ** 2, num_hypotheses=512)
+UNCAL_ABS_OPTS = RansacOptions(error_thresh=3.0 ** 2, num_hypotheses=128)
+# every pair of a track's first rays (the reference's exhaustive sampler
+# for 2-point samples): the same hypotheses in JAX and on the card, so
+# the reading does not follow a random stream
+TRI_OPTS = RansacOptions(error_thresh=(2.0 / 800.0) ** 2, num_hypotheses=64,
+                         sampler="exhaustive")
+PLANE_OPTS = RansacOptions(error_thresh=0.5 ** 2, num_hypotheses=256)
+RIGID_OPTS = RansacOptions(error_thresh=0.05 ** 2, num_hypotheses=128)
+SIM_OPTS = RansacOptions(error_thresh=1e-5, num_hypotheses=128)
+RADIAL_OPTS = RansacOptions(error_thresh=(2.0 / FOCAL) ** 2,
+                            num_hypotheses=64)
+EVSAC_OPTS = RansacOptions(error_thresh=(2.0 / FOCAL) ** 2,
+                           num_hypotheses=256, sampler="weighted")
+# synthetic problem sets: (count, correspondences)
+UNCAL_ABS = (64, 2048)
+RIGID = (64, 4096)
+SIM = (64, 2048)
+RADIAL = (28, 2048)
+MINIMAL_PROBLEMS = 4096
+# problems per call of the minimal-solver sweep: the (k, f) grid of
+# pnp_focal_radial runs 2,304 P3P solves per problem
+MINIMAL_CHUNK = {"pnp_focal_radial": 256, "p4pf": 1024}
+# accuracy a problem or pair must reach to count
+UNCAL_FOCAL_TOL, UNCAL_ROT_TOL_DEG = 0.1, 2.0
+ABS_FOCAL_TOL, ABS_ROT_TOL_DEG = 0.02, 1.0
+TRI_POINT_TOL = 0.05
+RIGID_TOL = 1e-2
+SIM_TOL = 0.05
+RADIAL_LAMBDA_TOL = 0.05
+
+# Gates, from tests/solvers_reference.py on the CPU (seeds 0-9; PERF.md,
+# the solver cells): each *_min of a reading is JAX's worst over the
+# seeds in float32 on the same inputs; each *_agree_min the fewest
+# problems on which the port's float32 CPU run, given JAX's indices,
+# agreed with JAX's. The card-vs-CPU bound: the card's run and the
+# port's CPU rerun on the card's samples are another pair of float32
+# implementations.
+GATES = dict(
+    uncal_rel_pairs_min=0, uncal_rel_agree_min=28,
+    uncal_abs_p4pf_min=0.984375, uncal_abs_dlt_min=0.953125,
+    uncal_abs_agree_min=8,
+    tri_share_min=0.9994665853844396,
+    tri_agree_min=0.9996189895603139,
+    plane_inliers_min=1134, plane_inliers_diff_max=0,
+    rigid_share_min=1.0, similarity_share_min=1.0, sim2d3d_share_min=1.0,
+    rigid_agree_min=8, similarity_agree_min=8, sim2d3d_agree_min=3,
+    radial_share_min=0.75, radial_agree_min=4,
+    evsac_pairs_min=6, evsac_agree_min=13)
+# minimal solvers: the port's float32 share on the CPU on the same 4,096
+# problems (tests/solvers_reference.py --parts minimal), and the margin
+# the card's share may fall short of it
+MINIMAL_CPU_SHARE = {
+    "focal_from_fundamental": 1.0, "seven_point": 0.998046875,
+    "known_rotation": 0.99951171875, "dlt_pnp": 0.009033203125,
+    "epnp": 0.721435546875, "p4pf": 0.896484375,
+    "pnp_focal_radial": 0.6689453125, "upnp": 1.0, "gdls": 0.87451171875,
+    "radial_homography": 0.755615234375, "partial_rotation": 0.919921875}
+MINIMAL_MARGIN = 0.02
+EVSAC_PROB_TOL = 1e-4
+
+
+def putative_pairs(arrays, names, device, lowes_ratio=0.8):
+    """All pairs (i < j) of the views' features matched at once, one
+    top2 launch each way (the kernel on the card, its plain version on
+    the CPU): the symmetric ratio-test matches, compacted and padded to
+    next_bucket(max, 64). Returns dict(pairs, x1, x2 (P, N, 2) pixels
+    centred on PP, mask (P, N), ratio (P, N) best / second distance,
+    counts)."""
+    V = len(names)
+    N = next_bucket(max(len(arrays[n][1]) for n in names), 128)
+    D = arrays[names[0]][1].shape[1]
+    kp = torch.zeros(V, N, 2)
+    desc = torch.zeros(V, N, D)
+    vmask = torch.zeros(V, N, dtype=torch.bool)
+    for v, n in enumerate(names):
+        k, d = arrays[n]
+        kp[v, :len(k)] = torch.as_tensor(np.asarray(k)[:, :2],
+                                         dtype=torch.float32)
+        desc[v, :len(d)] = torch.as_tensor(np.asarray(d),
+                                           dtype=torch.float32)
+        vmask[v, :len(d)] = True
+    kp, desc, vmask = kp.to(device), desc.to(device), vmask.to(device)
+    pairs = [(i, j) for i in range(V) for j in range(i + 1, V)]
+    I = torch.tensor([p[0] for p in pairs], device=device)
+    J = torch.tensor([p[1] for p in pairs], device=device)
+    d1, d2 = desc[I].contiguous(), desc[J].contiguous()
+    m1, m2 = vmask[I], vmask[J]
+
+    def norms(d, m):
+        return torch.where(m, (d * d).sum(-1), torch.full_like(d[..., 0],
+                                                               1e30))
+    with full_f32():
+        best, second, idx = tfm.top2(d1, d2, norms(d2, m2))
+        _, _, ridx = tfm.top2(d2, d1, norms(d1, m1))
+    n1 = (d1 * d1).sum(-1)
+    best = torch.clamp_min(best + n1, 0.0)
+    second = torch.clamp_min(second + n1, 0.0)
+    rows = torch.arange(N, device=device)
+    valid = (best < lowes_ratio ** 2 * second) & m1 & \
+        (ridx.gather(1, idx.long()) == rows.to(ridx.dtype))
+    counts = valid.sum(1)
+    Nb = next_bucket(int(counts.max()), 64)
+    order = torch.argsort((~valid).to(torch.int8), dim=1, stable=True)[:, :Nb]
+    keep = rows[:Nb][None] < counts[:, None]
+    pp = torch.tensor(PP, device=device)
+    x1 = torch.gather(kp[I], 1, order[..., None].expand(-1, -1, 2)) - pp
+    x2 = torch.gather(kp[J], 1, idx.long().gather(1, order)[..., None]
+                      .expand(-1, -1, 2)) - pp
+    ratio = torch.sqrt(best.gather(1, order) /
+                       torch.clamp_min(second.gather(1, order), 1e-30))
+    zero = torch.zeros_like(x1)
+    return dict(pairs=pairs, x1=torch.where(keep[..., None], x1, zero),
+                x2=torch.where(keep[..., None], x2, zero), mask=keep,
+                ratio=torch.where(keep, ratio, torch.ones_like(ratio)),
+                counts=counts.cpu().tolist())
+
+
+def _rel_rotation_err_deg(R, aa_true):
+    Rt = rot.angle_axis_to_rotation_matrix(torch.as_tensor(
+        aa_true, dtype=torch.float64))
+    c = (torch.diagonal(Rt.transpose(-1, -2) @ torch.as_tensor(
+        R, dtype=torch.float64).cpu(), dim1=-2, dim2=-1).sum(-1) - 1) / 2
+    return torch.rad2deg(torch.arccos(torch.clamp(c, -1, 1))).numpy()
+
+
+def pair_truth(cams, pairs):
+    """True relative rotations (angle-axis) and unit position directions
+    of camera 2 in camera 1's frame, (P, 3) each."""
+    aa, c = zip(*(_true_relative(cams[i], cams[j]) for i, j in pairs))
+    return np.stack(aa), np.stack(c)
+
+
+def uncal_rel_errors(out, aa_true):
+    """Per pair: the larger relative focal error (true focal 600 px) and
+    the rotation error (degrees)."""
+    f = torch.stack([out["focal_length_1"], out["focal_length_2"]],
+                    -1).double().cpu().numpy()
+    ferr = np.abs(f - FOCAL).max(-1) / FOCAL
+    return ferr, _rel_rotation_err_deg(out["R"], aa_true)
+
+
+def abs_errors(extr, focal, truth):
+    """Per problem: the relative focal error and the rotation error
+    (degrees) of estimated [position, angle-axis] extrinsics."""
+    e = extr.double().cpu()
+    ferr = np.abs(focal.double().cpu().numpy() - truth["focal"]) / \
+        truth["focal"]
+    R = rot.angle_axis_to_rotation_matrix(e[:, 3:])
+    return ferr, _rel_rotation_err_deg(R, truth["extrinsics"][:, 3:])
+
+
+def _agree(a, b, rel):
+    """Problems whose inlier counts agree within max(2, 1%) and whose
+    values agree within `rel` relative."""
+    na, nb = (np.asarray(x.cpu() if torch.is_tensor(x) else x, float)
+              for x in (a[0], b[0]))
+    va, vb = (np.asarray(x.double().cpu()) if torch.is_tensor(x) else
+              np.asarray(x, float) for x in (a[1], b[1]))
+    va, vb = va.reshape(len(na), -1), vb.reshape(len(nb), -1)
+    dv = np.abs(va - vb).max(-1) / np.maximum(np.abs(vb).max(-1), 1e-12)
+    return int(np.sum((np.abs(na - nb) <= np.maximum(2, 0.01 * nb)) &
+                      (dv <= rel)))
+
+
+def _to(d, device, dtype=torch.float32):
+    return {k: torch.as_tensor(v, dtype=dtype, device=device)
+            for k, v in d.items()}
+
+
+def phase_uncalibrated(scene):
+    """(a) The uncalibrated relative pose (8-point + Bougnoux + the
+    essential's decomposition) on the 28 pairs of card-matched features
+    in one batched call, the focal lengths and rotations against the
+    truth; (b) the uncalibrated absolute pose, P4Pf and the 6-point
+    DLT spec, on 64 synthetic problems of 2,048 correspondences (focal
+    400-1,600 px, 1 px noise, 30% outliers). Each held to JAX's reading
+    and rerun on the CPU on the card's indices."""
+    P = putative_pairs(scene["arrays"], scene["names"], "cuda")
+    aa_true, _ = pair_truth(scene["cams"], P["pairs"])
+    gen = torch.Generator("cuda").manual_seed(0)
+    Nb = P["x1"].shape[1]
+    opts = UNCAL_REL_OPTS
+    idx = random_samples(gen, Nb, 8, opts.num_hypotheses, P["mask"])
+
+    def rel(dev):
+        return estimate_uncalibrated_relative_pose(
+            idx.to(dev), P["x1"].to(dev), P["x2"].to(dev), opts,
+            P["mask"].to(dev))
+    out, first_s = sync_time(lambda: rel("cuda"))
+    _, warm_s = sync_time(lambda: rel("cuda"))
+    t0 = time.perf_counter()
+    cpu = rel("cpu")
+    cpu_s = time.perf_counter() - t0
+    ferr, rerr = uncal_rel_errors(out, aa_true)
+    good = int(np.sum((ferr <= UNCAL_FOCAL_TOL) & (rerr <= UNCAL_ROT_TOL_DEG)))
+    # inlier counts only: on these nearly planar pairs the 8-point
+    # system's nullspace has more than one dimension, so F (and the
+    # focal lengths from it) follow rounding
+    agree = _agree((out["num_inliers"], out["F"]),
+                   (cpu["num_inliers"], cpu["F"]), np.inf)
+    rel_res = dict(pairs=len(P["pairs"]), putative=P["counts"],
+                   first_s=first_s, ms=warm_s * 1e3, cpu_s=cpu_s,
+                   focal_err=ferr.tolist(), rotation_err_deg=rerr.tolist(),
+                   pairs_within=good, card_cpu_agree=agree,
+                   num_inliers=out["num_inliers"].cpu().tolist())
+    emit("uncalibrated_relative", **rel_res)
+    check(good >= GATES["uncal_rel_pairs_min"],
+          f"uncalibrated relative: {good} pairs within {UNCAL_FOCAL_TOL} "
+          f"focal and {UNCAL_ROT_TOL_DEG} deg < "
+          f"{GATES['uncal_rel_pairs_min']}")
+    check(agree >= GATES["uncal_rel_agree_min"],
+          f"uncalibrated relative: card and CPU agree on {agree} pairs")
+
+    B, N = UNCAL_ABS
+    prob = sp.absolute_pose(np.random.default_rng(0), B, N,
+                            focal=(400, 1600), noise_px=1.0, outliers=0.3)
+    data = _to(dict(world=prob["world"], image=prob["image"]), "cuda")
+    aopts = UNCAL_ABS_OPTS
+    runs = {}
+    for name, s in (("p4pf", 4), ("dlt", 6)):
+        sidx = random_samples(gen, N, s, aopts.num_hypotheses,
+                              torch.ones(B, N, dtype=torch.bool,
+                                         device="cuda"))
+
+        def run(dev, sub=slice(None)):
+            d = {k: v[sub].to(dev) for k, v in data.items()}
+            if name == "p4pf":
+                o = estimate_uncalibrated_absolute_pose(
+                    sidx[sub].to(dev), d["world"], d["image"], aopts)
+                return o["extrinsics"], o["focal_length"], o["num_inliers"]
+            m, summ = ransac_batch(sidx[sub].to(dev),
+                                   uncalibrated_absolute_pose_spec(), d,
+                                   aopts)
+            return m[:, :6], m[:, 6], summ.num_inliers
+        (e, f, n), first = sync_time(lambda: run("cuda"))
+        _, warm = sync_time(lambda: run("cuda"))
+        sub = slice(0, 8)
+        t0 = time.perf_counter()
+        ce, cf, cn = run("cpu", sub)
+        cpu_s = time.perf_counter() - t0
+        fe, re_ = abs_errors(e, f, prob)
+        share = float(np.mean((fe <= ABS_FOCAL_TOL) &
+                              (re_ <= ABS_ROT_TOL_DEG)))
+        agree = _agree((n[sub], f[sub]), (cn, cf), 1e-3)
+        runs[name] = dict(first_s=first, ms=warm * 1e3, cpu8_s=cpu_s,
+                          share_within=share,
+                          median_focal_err=float(np.median(fe)),
+                          median_rotation_err_deg=float(np.median(re_)),
+                          card_cpu_agree_of_8=agree)
+        check(share >= GATES[f"uncal_abs_{name}_min"],
+              f"uncalibrated absolute {name}: share {share}")
+        check(agree >= GATES["uncal_abs_agree_min"],
+              f"uncalibrated absolute {name}: card and CPU agree on "
+              f"{agree} of 8")
+    emit("uncalibrated_absolute", problems=B, correspondences=N, **runs,
+         nvidia_smi=nvidia_smi())
+
+
+def city_rays(city):
+    """Every track of the city scene as world rays from the true cameras
+    through its observed pixels, padded to next_bucket(longest, 8):
+    origins, directions (T, L, 3), mask (T, L); and the scene's true
+    points (build_city_scene's first draws from default_rng(0))."""
+    recon, _ = pickle.loads(city["blob"])
+    extrs = city["extrs"]
+    names = sorted(recon.views)
+    vindex = {v: i for i, v in enumerate(names)}
+    Rs = _rodrigues_batch(extrs[:, 3:])
+    tracks = sorted(recon.tracks)
+    obs = [[(vindex[v], recon.views[v].features[t])
+            for v in sorted(recon.tracks[t].views)] for t in tracks]
+    L = next_bucket(max(len(o) for o in obs), 8)
+    T = len(tracks)
+    origins = np.zeros((T, L, 3))
+    dirs = np.zeros((T, L, 3))
+    dirs[..., 2] = 1.0
+    mask = np.zeros((T, L), bool)
+    for k, o in enumerate(obs):
+        v = np.array([a for a, _ in o])
+        pix = np.stack([p for _, p in o])
+        ray = np.concatenate([(pix - [640.0, 480.0]) / 800.0,
+                              np.ones((len(v), 1))], 1)
+        ray = np.einsum("nji,nj->ni", Rs[v], ray)
+        origins[k, :len(v)] = extrs[v, :3]
+        dirs[k, :len(v)] = ray / np.linalg.norm(ray, axis=1, keepdims=True)
+        mask[k, :len(v)] = True
+    rng = np.random.default_rng(0)
+    n = city["points"]
+    ang = rng.uniform(0, 2 * np.pi, n)
+    rad = rng.uniform(38, 48, n)
+    pts = np.stack([rad * np.cos(ang), rng.uniform(-5, 8, n),
+                    rad * np.sin(ang)], -1)
+    return origins, dirs, mask, pts
+
+
+def _rodrigues_batch(aa):
+    return np.stack([_rodrigues(a) for a in aa])
+
+
+def nearest_point_err(X, pts, device):
+    """Distance from each estimated point to the nearest true point."""
+    X = torch.as_tensor(X, dtype=torch.float64, device=device)
+    P = torch.as_tensor(pts, dtype=torch.float64, device=device)
+    return torch.cat([torch.cdist(x, P).amin(1) for x in
+                      X.split(2048)]).cpu().numpy()
+
+
+def transform_errors(out, truth):
+    """Per problem: the largest of the rotation (Frobenius), translation
+    (relative) and scale (relative) errors."""
+    R = out["R"].double().cpu().numpy()
+    t = out["t"].double().cpu().numpy()
+    s = out["scale"].double().cpu().numpy()
+    return np.maximum.reduce([
+        np.linalg.norm(R - truth["R"], axis=(-2, -1)),
+        np.linalg.norm(t - truth["t"], axis=-1) /
+        np.maximum(np.linalg.norm(truth["t"], axis=-1), 1.0),
+        np.abs(s - truth["s"]) / truth["s"]])
+
+
+def phase_transforms(city):
+    """estimate_triangulation on every track of the global_1dsfm city
+    scene at 553 views (true cameras, observed pixels) in one batched
+    call; estimate_dominant_plane_from_points on its 14,000 points;
+    estimate_rigid_transform with and without scale on 64 x 4,096
+    synthetic pairs (30% outliers); estimate_similarity_transform_2d_3d
+    on 64 generalized cameras x 2,048 rays (30% outliers)."""
+    gen = torch.Generator("cuda").manual_seed(1)
+    origins, dirs, mask, pts = city_rays(city)
+    o, d = (torch.as_tensor(x, dtype=torch.float32, device="cuda")
+            for x in (origins, dirs))
+    m = torch.as_tensor(mask, device="cuda")
+    idx = exhaustive_pair_samples(m.shape[1], TRI_OPTS.num_hypotheses,
+                                  "cuda").expand(len(m), -1, -1)
+    out, first_s = sync_time(lambda: estimate_triangulation(idx, o, d,
+                                                           TRI_OPTS, m))
+    _, warm_s = sync_time(lambda: estimate_triangulation(idx, o, d,
+                                                         TRI_OPTS, m))
+    err = nearest_point_err(out["point"], pts, "cuda")
+    share = float(np.mean(err <= TRI_POINT_TOL))
+    t0 = time.perf_counter()
+    cpu = estimate_triangulation(idx.cpu(), o.cpu(), d.cpu(), TRI_OPTS,
+                                 m.cpu())
+    cpu_s = time.perf_counter() - t0
+    agree = _agree((out["num_inliers"], out["point"]),
+                   (cpu["num_inliers"], cpu["point"]), 1e-4) / len(mask)
+    tri = dict(tracks=len(mask), observations=int(mask.sum()),
+               padded_length=mask.shape[1], first_s=first_s,
+               ms=warm_s * 1e3, cpu_s=cpu_s, share_within=share,
+               cpu_share_within=float(np.mean(nearest_point_err(
+                   cpu["point"], pts, "cuda") <= TRI_POINT_TOL)),
+               median_point_err=float(np.median(err)),
+               card_cpu_agree_share=agree,
+               inlier_share=float(out["num_inliers"].sum().item() /
+                                  mask.sum()))
+    check(share >= GATES["tri_share_min"], f"triangulation: share {share}")
+    check(agree >= GATES["tri_agree_min"],
+          f"triangulation: card and CPU agree on {agree}")
+
+    P = torch.as_tensor(pts, dtype=torch.float32, device="cuda")
+    pidx = random_samples(gen, next_bucket(len(pts), 16), 3,
+                          PLANE_OPTS.num_hypotheses,
+                          torch.arange(next_bucket(len(pts), 16),
+                                       device="cuda") < len(pts))
+    plane, plane_s = sync_time(lambda: estimate_dominant_plane_from_points(
+        pidx, P, PLANE_OPTS))
+    cplane = estimate_dominant_plane_from_points(pidx.cpu(), P.cpu(),
+                                                 PLANE_OPTS)
+    n_plane = int(plane["num_inliers"])
+    check(n_plane >= GATES["plane_inliers_min"],
+          f"dominant plane: {n_plane} inliers")
+    check(abs(n_plane - int(cplane["num_inliers"])) <=
+          GATES["plane_inliers_diff_max"],
+          f"dominant plane: card {n_plane}, CPU {int(cplane['num_inliers'])}")
+
+    res = {}
+    for name, with_scale in (("rigid", False), ("similarity", True)):
+        B, N = RIGID
+        prob = sp.rigid_pairs(np.random.default_rng(2 + with_scale), B, N,
+                              with_scale, noise=0.01, outliers=0.3)
+        data = _to(dict(src=prob["src"], dst=prob["dst"]), "cuda")
+        ridx = random_samples(gen, N, 3, RIGID_OPTS.num_hypotheses,
+                              torch.ones(B, N, dtype=torch.bool,
+                                         device="cuda"))
+
+        def rig(dev, sub=slice(None)):
+            return estimate_rigid_transform(
+                ridx[sub].to(dev), data["src"][sub].to(dev),
+                data["dst"][sub].to(dev), RIGID_OPTS, with_scale=with_scale)
+        o_, first = sync_time(lambda: rig("cuda"))
+        _, warm = sync_time(lambda: rig("cuda"))
+        c_ = rig("cpu", slice(0, 8))
+        e = transform_errors(o_, prob)
+        res[name] = dict(first_s=first, ms=warm * 1e3,
+                         share_within=float(np.mean(e <= RIGID_TOL)),
+                         median_err=float(np.median(e)),
+                         card_cpu_agree_of_8=_agree(
+                             (o_["num_inliers"][:8], o_["R"][:8]),
+                             (c_["num_inliers"], c_["R"]), 1e-4))
+        check(res[name]["share_within"] >= GATES[f"{name}_share_min"] and
+              res[name]["card_cpu_agree_of_8"] >= GATES[f"{name}_agree_min"],
+              f"{name} transform: {res[name]}")
+
+    B, N = SIM
+    prob = sp.generalized_similarity(np.random.default_rng(4), B, N,
+                                     noise=1e-3, outliers=0.3)
+    data = _to(dict(origin=prob["origin"], dir=prob["dir"],
+                    point=prob["point"]), "cuda")
+    sidx = random_samples(gen, N, 4, SIM_OPTS.num_hypotheses,
+                          torch.ones(B, N, dtype=torch.bool, device="cuda"))
+
+    def sim(dev, sub=slice(None)):
+        return estimate_similarity_transform_2d_3d(
+            sidx[sub].to(dev), data["origin"][sub].to(dev),
+            data["dir"][sub].to(dev), data["point"][sub].to(dev), SIM_OPTS)
+    o_, first = sync_time(lambda: sim("cuda"))
+    _, warm = sync_time(lambda: sim("cuda"))
+    c_ = sim("cpu", slice(0, 4))
+    e = transform_errors(o_, prob)
+    res["similarity_2d_3d"] = dict(
+        first_s=first, ms=warm * 1e3,
+        share_within=float(np.mean(e <= SIM_TOL)),
+        median_err=float(np.median(e)),
+        card_cpu_agree_of_4=_agree((o_["num_inliers"][:4], o_["R"][:4]),
+                                   (c_["num_inliers"], c_["R"]), 1e-3))
+    check(res["similarity_2d_3d"]["share_within"] >=
+          GATES["sim2d3d_share_min"] and
+          res["similarity_2d_3d"]["card_cpu_agree_of_4"] >=
+          GATES["sim2d3d_agree_min"], f"similarity 2D-3D: {res}")
+    emit("transforms", triangulation=tri,
+         dominant_plane=dict(points=len(pts), inliers=n_plane,
+                             cpu_inliers=int(cplane["num_inliers"]),
+                             ms=plane_s * 1e3,
+                             plane=plane["plane"].cpu().tolist()),
+         **res, nvidia_smi=nvidia_smi())
+
+
+def phase_radial_homography():
+    """estimate_radial_distortion_homography, one call per pair, on 28
+    synthetic planar pairs of 2,048 correspondences (two-sided division
+    distortion, 0.5 px noise at 600 px, 20% outliers): the recovered
+    l1, l2 and the inliers' symmetric transfer error."""
+    B, N = RADIAL
+    prob = sp.radial_pairs(np.random.default_rng(5), B, N,
+                           noise=0.5 / FOCAL, outliers=0.2)
+    x1, x2 = (torch.as_tensor(prob[k], dtype=torch.float32, device="cuda")
+              for k in ("x1", "x2"))
+    gen = torch.Generator("cuda").manual_seed(2)
+    idx = random_samples(gen, N, 6, RADIAL_OPTS.num_hypotheses,
+                         torch.ones(B, N, dtype=torch.bool, device="cuda"))
+
+    def run(dev, pairs):
+        return [estimate_radial_distortion_homography(
+            idx[b].to(dev), x1[b].to(dev), x2[b].to(dev), RADIAL_OPTS)
+            for b in pairs]
+    outs, first_s = sync_time(lambda: run("cuda", range(B)))
+    _, warm_s = sync_time(lambda: run("cuda", range(B)))
+    cpu = run("cpu", range(4))
+    l = np.array([[float(o["l1"]), float(o["l2"])] for o in outs])
+    lt = np.stack([prob["l1"], prob["l2"]], -1)
+    lerr = np.abs(l - lt).max(-1)
+    terr = [float(torch.sqrt(radial_homography_symmetric_error_sq(
+        torch.cat([o["H"].reshape(9), o["l1"][None], o["l2"][None]]),
+        x1[b], x2[b])[o["inliers"]]).median() * FOCAL)
+        for b, o in enumerate(outs)]
+    share = float(np.mean(lerr <= RADIAL_LAMBDA_TOL))
+    agree = _agree(([int(o["num_inliers"]) for o in outs[:4]],
+                    np.stack([[float(o["l1"]), float(o["l2"])]
+                              for o in outs[:4]])),
+                   ([int(o["num_inliers"]) for o in cpu],
+                    np.stack([[float(o["l1"]), float(o["l2"])]
+                              for o in cpu])), 1e-3)
+    emit("radial_homography", pairs=B, correspondences=N, first_s=first_s,
+         ms_per_pair=warm_s * 1e3 / B, lambda_est=l.tolist(),
+         lambda_true=lt.tolist(), lambda_err_max=float(lerr.max()),
+         share_within=share, transfer_err_median_px=terr,
+         num_inliers=[int(o["num_inliers"]) for o in outs],
+         card_cpu_agree_of_4=agree, nvidia_smi=nvidia_smi())
+    check(share >= GATES["radial_share_min"],
+          f"radial homography: share {share}")
+    check(agree >= GATES["radial_agree_min"],
+          f"radial homography: card and CPU agree on {agree} of 4")
+
+
+def weighted_relative_pose(samples, P, weights, dtype=torch.float32,
+                           device="cuda"):
+    """The relative-pose RANSAC of estimate_relative_pose (5-point,
+    Sampson, the GN refinement) over all pairs at once with EVSAC's
+    weighted sampler, then the cheirality decomposition: (R, t, inliers,
+    num_inliers). samples: a torch.Generator or (P, H, 5) indices."""
+    x1 = (P["x1"] / FOCAL).to(device, dtype)
+    x2 = (P["x2"] / FOCAL).to(device, dtype)
+    mask = P["mask"].to(device)
+    E, summ = ransac_batch(samples, relative_pose_spec(),
+                           {"x1": x1, "x2": x2}, EVSAC_OPTS,
+                           data_mask=mask,
+                           sample_weights=weights.to(device, dtype))
+    R, t, _ = relative_pose_from_essential(E, x1, x2, mask=summ.inliers)
+    return R, t, summ.inliers, summ.num_inliers
+
+
+def pose_within(R, t, aa_true, c_true):
+    """Pairs within 1 degree of the true rotation and 3 degrees of the
+    true position direction (the position of camera 2 in camera 1's
+    frame is -R^T t)."""
+    rerr = _rel_rotation_err_deg(R, aa_true)
+    Rd, td = R.double().cpu(), t.double().cpu()
+    c = -(Rd.transpose(-1, -2) @ td[..., None])[..., 0].numpy()
+    c /= np.linalg.norm(c, axis=-1, keepdims=True)
+    derr = np.degrees(np.arccos(np.clip(np.sum(c * c_true, -1), -1, 1)))
+    return rerr, derr, int(np.sum((rerr <= 1.0) & (derr <= 3.0)))
+
+
+def phase_evsac(scene):
+    """EVSAC's probabilities (evsac_probabilities of each match's best /
+    second descriptor distance) of the 28 pairs' card matches, on the
+    card and on the CPU; then the relative pose with sampler='weighted'
+    on all pairs at once, the poses against the truth, and rerun on the
+    CPU with the card's samples."""
+    P = putative_pairs(scene["arrays"], scene["names"], "cuda")
+    aa_true, c_true = pair_truth(scene["cams"], P["pairs"])
+    w, prob_s = sync_time(lambda: evsac_probabilities(P["ratio"], P["mask"]))
+    w_cpu = evsac_probabilities(P["ratio"].cpu(), P["mask"].cpu())
+    prob_err = float((w.cpu() - w_cpu).abs().max())
+    gen = torch.Generator("cuda").manual_seed(3)
+    H = EVSAC_OPTS.num_hypotheses
+    idx = weighted_samples(gen, w * P["mask"], 5, H)
+    out, first_s = sync_time(lambda: weighted_relative_pose(idx, P, w))
+    _, warm_s = sync_time(lambda: weighted_relative_pose(idx, P, w))
+    t0 = time.perf_counter()
+    cpu = weighted_relative_pose(idx.cpu(), P, w, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rerr, derr, good = pose_within(out[0], out[1], aa_true, c_true)
+    agree = _agree((out[3], out[0]), (cpu[3], cpu[0]), 1e-3)
+    # the uniform sampler on the same pairs, for the comparison
+    uidx = random_samples(gen, P["x1"].shape[1], 5, H, P["mask"])
+    uni = weighted_relative_pose(uidx, P, torch.ones_like(w))
+    _, _, good_uniform = pose_within(uni[0], uni[1], aa_true, c_true)
+    emit("evsac", pairs=len(P["pairs"]), probabilities_ms=prob_s * 1e3,
+         card_cpu_prob_max_abs=prob_err, first_s=first_s, ms=warm_s * 1e3,
+         cpu_s=cpu_s, rotation_err_deg=rerr.tolist(),
+         direction_err_deg=derr.tolist(), within_1deg_3deg=good,
+         uniform_within_1deg_3deg=good_uniform, card_cpu_agree=agree,
+         num_inliers=out[3].cpu().tolist(), nvidia_smi=nvidia_smi())
+    check(prob_err <= EVSAC_PROB_TOL,
+          f"evsac: card vs CPU probabilities {prob_err}")
+    check(good >= GATES["evsac_pairs_min"],
+          f"evsac: {good} pairs within 1/3 degrees")
+    check(agree >= GATES["evsac_agree_min"],
+          f"evsac: card and CPU agree on {agree} pairs")
+
+
+def phase_minimal_solvers():
+    """Each pose-solver module on 4,096 exact random problems in float32
+    on the card: ms per batch (warm) and the share of problems whose
+    ground truth is among the valid solutions (relative 1e-3), held to
+    the port's float32 CPU share on the same problems."""
+    res = {}
+    for name in sp.MINIMAL_SOLVERS:
+        x, truth = sp.minimal_problems(name, 0, MINIMAL_PROBLEMS)
+        chunk = MINIMAL_CHUNK.get(name)
+        out, first = sync_time(lambda: sp.run_minimal(
+            name, x, device="cuda", chunk=chunk))
+        _, warm = sync_time(lambda: sp.run_minimal(name, x, device="cuda",
+                                                   chunk=chunk))
+        share = float(np.mean(sp.minimal_hits(name, out, truth)))
+        ref = MINIMAL_CPU_SHARE.get(name)
+        res[name] = dict(ms=warm * 1e3, first_s=first, share=share,
+                         cpu_share=ref)
+        check(ref is None or share >= ref - MINIMAL_MARGIN,
+              f"minimal_solvers {name}: card share {share} < CPU {ref} - "
+              f"{MINIMAL_MARGIN}")
+    emit("minimal_solvers", problems=MINIMAL_PROBLEMS, dtype="float32",
+         solvers=res, nvidia_smi=nvidia_smi())
+
+
 # ----------------------------------------------------------------- main
 
 def main():
@@ -2214,9 +2815,15 @@ def main():
     phase_frontend_verify(scene)
     n_incr, _ = phase_incremental(scene)
     n_incr24, err_incr24, scene24 = phase_incremental_24()
-    phase_global_1dsfm()
+    city = _city(*CITY)
+    phase_global_1dsfm(city)
     n_global24 = phase_global_24(scene24)
     phase_hybrid(scene)
+    phase_uncalibrated(scene)
+    phase_transforms(city)
+    phase_radial_homography()
+    phase_evsac(scene)
+    phase_minimal_solvers()
 
     summary = []
     for (name, layout), replaces in REPLACES.items():

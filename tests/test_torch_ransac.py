@@ -203,11 +203,29 @@ def test_ransac_with_generator_and_prosac():
 
 
 def test_weighted_sampler_raises():
+    """sampler='weighted' (EVSAC, ported since) raises without
+    sample_weights; with them, given the indices JAX's weighted sampler
+    draws, it returns JAX's model and inliers."""
     opts = tr.RansacOptions(error_thresh=0.04, num_hypotheses=H,
                             sampler="weighted")
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+    with pytest.raises(ValueError, match="sample_weights"):
         tr.ransac(torch.Generator(), torch_line_spec(),
                   {"p": torch.zeros(10, 2)}, opts)
+    data = _line_data(8)
+    w = np.random.default_rng(9).uniform(0.1, 1.0, len(data))
+    key = jax.random.PRNGKey(9)
+    jm, js = jr.ransac(key, jax_line_spec(), jnp.asarray(data),
+                       jr.RansacOptions(error_thresh=0.04, num_hypotheses=H,
+                                        sampler="weighted"),
+                       sample_weights=jnp.asarray(w))
+    jev = importlib.import_module("theiasfm_tpu.solvers.evsac")
+    idx = torch.from_numpy(np.asarray(jev.weighted_samples(
+        key, jnp.asarray(w), 2, H)))
+    tm, ts = tr.ransac(idx, torch_line_spec(), {"p": torch.from_numpy(data)},
+                       opts, sample_weights=torch.from_numpy(w))
+    np.testing.assert_allclose(tm.numpy(), np.asarray(jm), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_array_equal(ts.inliers.numpy(), np.asarray(js.inliers))
 
 
 def test_adaptive_and_budget_helper():

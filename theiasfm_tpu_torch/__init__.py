@@ -34,8 +34,17 @@ Ported so far:
   absolute-pose estimator, localization, track estimation, the outlier
   filters and the incremental pipeline (`sfm/pipeline/`), Fisher-vector
   pair selection (`matching/fisher_vector.py`), the feature extractor
-  and the ReconstructionBuilder, whose INCREMENTAL estimator runs (the
-  global and hybrid pipelines export their options and raise).
+  and the ReconstructionBuilder, whose INCREMENTAL estimator runs;
+* the global and hybrid pipelines (`sfm/global_pose/`,
+  `sfm/pipeline/{global_pipeline,hybrid}.py`), the builder's GLOBAL and
+  HYBRID estimators;
+* the remaining pose solvers (`sfm/pose/`: seven-point, focal lengths
+  from F, known rotation, DLT, EPnP, P4Pf, PnP with focal and radial
+  distortion, UPnP/DLS, gDLS, the radial-distortion homography, the
+  partial-rotation family), the uncalibrated and transform estimators
+  (`sfm/estimators/`), EVSAC's weighted sampler (`solvers/evsac.py`) and
+  `math/{gauss_jordan,probability}.py`; `solver_problems.py` makes
+  seeded synthetic problems for them.
 
 The kernels are built at first use by `_kernels.py`. Entry points run
 on the device of the tensors they are given; the constructors and entry
@@ -44,7 +53,8 @@ points that build their own tensors (`bench_problem.make_problem`,
 `matching.FeatureMatcher`, `Reconstruction.to_ba_problem`, the
 `sfm.ba` entry points, the verification's and the incremental
 pipeline's entry points in `sfm.pipeline`, the ReconstructionBuilder,
-the Fisher-vector and feature extractors) default to `device="cuda"`
+the Fisher-vector and feature extractors, `solver_problems.run_minimal`)
+default to `device="cuda"`
 and raise when no card is present; the verification and the
 localization also raise when their torch.Generator or sample indices
 lie on another device.

@@ -72,6 +72,30 @@ def angle_axis_rotate_point(aa, pt):
     return torch.where(small[..., None], rotated_small, rotated)
 
 
+def angle_axis_rotate_point_jacobian(aa, pt):
+    """`angle_axis_rotate_point` and its jacobian in closed form:
+    (rotated (..., 3), d rotated / d aa (..., 3, 3)).
+
+    d(R v)/d aa = -R [v]x J_r(aa) with the right jacobian of SO(3),
+    J_r = I - (1 - cos t)/t^2 [aa]x + (t - sin t)/t^3 [aa]x^2; below the
+    small-angle threshold the first-order branch p + aa x p has the
+    jacobian -[p]x. The same numbers as autodiff through
+    `angle_axis_rotate_point`, without it."""
+    aa, pt = torch.broadcast_tensors(aa, pt)
+    theta = _theta(aa)[..., 0]
+    small = theta < 1e-6
+    t = torch.where(small, torch.ones_like(theta), theta)
+    a = ((1.0 - torch.cos(t)) / (t * t))[..., None, None]
+    b = ((t - torch.sin(t)) / (t * t * t))[..., None, None]
+    W = skew(aa)
+    eye = torch.eye(3, dtype=aa.dtype, device=aa.device)
+    Jr = eye - a * W + b * (W @ W)
+    R = angle_axis_to_rotation_matrix(aa)
+    P = skew(pt)
+    J = torch.where(small[..., None, None], -P, -(R @ P) @ Jr)
+    return angle_axis_rotate_point(aa, pt), J
+
+
 def rotation_matrix_to_quaternion(R):
     """(..., 3, 3) -> unit quaternion (..., 4) [w, x, y, z], w >= 0.
 

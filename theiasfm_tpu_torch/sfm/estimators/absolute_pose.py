@@ -19,8 +19,9 @@ import torch
 
 from ...math import rotation as rot
 from ...solvers import MinimalSolverSpec, RansacOptions, ransac
-from ...utils import linalg, next_bucket
+from ...utils import linalg
 from ..pose.p3p import p3p_grunert
+from ._batch import pad_data
 
 
 def _reproject_sq_error(extr, world, image):
@@ -98,19 +99,9 @@ def estimate_calibrated_absolute_pose(samples, world, image,
     points, masked out), and `samples` (a torch.Generator or (H, 3)
     indices into the padded data) lie on their device. Returns
     dict(extrinsics, inliers, num_inliers, confidence)."""
-    n = world.shape[0]
-    b = next_bucket(n, 64)
-    if mask is None:
-        mask = torch.ones(n, dtype=torch.bool, device=world.device)
-    if b != n:
-        pad = b - n
-        wpad = world.new_zeros((pad, 3))
-        wpad[:, 2] = 1.0
-        world = torch.cat([world, wpad])
-        image = torch.cat([image, image.new_zeros((pad, 2))])
-        mask = torch.cat([mask, mask.new_zeros(pad)])
-    extr, summary = ransac(samples, absolute_pose_spec(),
-                           {"world": world, "image": image}, options,
+    data, mask, n = pad_data({"world": world, "image": image},
+                             {"world": [0.0, 0.0, 1.0]}, mask, 64)
+    extr, summary = ransac(samples, absolute_pose_spec(), data, options,
                            data_mask=mask)
     return {"extrinsics": extr, "inliers": summary.inliers[:n],
             "num_inliers": summary.num_inliers,

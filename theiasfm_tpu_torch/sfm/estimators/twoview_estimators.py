@@ -20,16 +20,19 @@ import torch
 
 from ...math import rotation as rot
 from ...solvers import MinimalSolverSpec, RansacOptions, ransac
-from ...utils import next_bucket
 from ..ba.two_view import _gauss_newton
 from ..pose.eight_point import eight_point_fundamental, npoint_fundamental
 from ..pose.five_point import five_point_essential
 from ..pose.homography import (four_point_homography,
                                homography_transfer_error_sq,
                                npoint_homography)
+from ..pose.radial_homography import (
+    radial_homography_symmetric_error_sq,
+    six_point_radial_distortion_homography)
 from ..pose.twoview_utils import (essential_from_rt,
                                   relative_pose_from_essential,
                                   sampson_distance_sq)
+from ._batch import pad_data
 
 
 def _sampson_residual(p, x1h, x2h, sw):
@@ -117,11 +120,17 @@ def homography_spec() -> MinimalSolverSpec:
 
 
 def radial_distortion_homography_spec() -> MinimalSolverSpec:
-    """6-pt two-sided radial-distortion homography (H6_l1l2); its
-    minimal solver is not ported yet."""
-    raise NotImplementedError(
-        "the radial-distortion homography is not ported yet (ROADMAP.md "
-        "queue 1, item 13: sfm/pose/radial_homography.py)")
+    """6-pt two-sided radial-distortion homography (H6_l1l2) with the
+    symmetric distorted-space transfer error. Model (11,) [vec(H), l1,
+    l2]. ref: estimate_radial_distortion_homography.cc."""
+    def solve(d):
+        return six_point_radial_distortion_homography(d["x1"], d["x2"])
+
+    def residuals(model, d):
+        return radial_homography_symmetric_error_sq(
+            model, d["x1"][:, None], d["x2"][:, None])
+
+    return MinimalSolverSpec("radial_homography", 6, 2, solve, residuals)
 
 
 @functools.lru_cache(maxsize=None)
@@ -132,29 +141,14 @@ def _singleton_spec(kind: str):
             "radial_homography": radial_distortion_homography_spec}[kind]()
 
 
-def _pad_pair(x1, x2, mask):
-    """Pad correspondences to a power-of-two bucket of at least 64 (the
-    JAX module's padding, so both sample over the same N)."""
-    n = x1.shape[0]
-    b = next_bucket(n, 64)
-    if mask is None:
-        mask = torch.ones(n, dtype=torch.bool, device=x1.device)
-    if b == n:
-        return x1, x2, mask
-    pad = b - n
-    x1 = torch.cat([x1, x1.new_zeros((pad, 2))])
-    x2 = torch.cat([x2, x2.new_zeros((pad, 2))])
-    mask = torch.cat([mask, mask.new_zeros(pad)])
-    return x1, x2, mask
-
-
 def _estimate(kind, samples, x1, x2, options, mask):
-    n = x1.shape[0]
-    x1p, x2p, maskp = _pad_pair(x1, x2, mask)
-    model, summary = ransac(samples, _singleton_spec(kind),
-                            {"x1": x1p, "x2": x2p}, options,
+    """Pad the correspondences to a power-of-two bucket of at least 64
+    (the JAX module's padding, so both sample over the same N) and run
+    RANSAC."""
+    data, maskp, n = pad_data({"x1": x1, "x2": x2}, {}, mask, 64)
+    model, summary = ransac(samples, _singleton_spec(kind), data, options,
                             data_mask=maskp)
-    return model, summary, x1p, x2p, n
+    return model, summary, data["x1"], data["x2"], n
 
 
 def estimate_relative_pose(samples, x1, x2, options: RansacOptions,
@@ -195,6 +189,16 @@ def estimate_homography(samples, x1, x2, options: RansacOptions,
 def estimate_radial_distortion_homography(samples, x1, x2,
                                           options: RansacOptions,
                                           mask=None):
-    """RANSAC radial homography between two division-model cameras;
-    raises until its minimal solver is ported."""
-    _singleton_spec("radial_homography")
+    """RANSAC radial homography between two division-model cameras.
+
+    x1, x2 (N, 2) distorted NORMALIZED coordinates; samples a
+    torch.Generator or (H, 6) indices into the padded data. Returns
+    dict(H, l1, l2, inliers, num_inliers, confidence)
+    (ref EstimateRadialHomographyMatrix,
+    estimate_radial_distortion_homography.h)."""
+    model, summary, _, _, n = _estimate("radial_homography", samples, x1,
+                                        x2, options, mask)
+    return {"H": model[:9].reshape(3, 3), "l1": model[9], "l2": model[10],
+            "inliers": summary.inliers[:n],
+            "num_inliers": summary.num_inliers,
+            "confidence": summary.confidence}

@@ -19,7 +19,9 @@ same indices.
 Quality measures: 'inlier', 'msac', 'mle', 'lmed' (ref
 quality_measurement.h variants). Samplers: 'random' (Gumbel top-k,
 exact sampling without replacement within a hypothesis), 'prosac',
-'exhaustive'; 'weighted' waits for the EVSAC port.
+'exhaustive' and 'weighted' (EVSAC, Gumbel top-k on the log weights of
+`sample_weights`, solvers/evsac.py; 'random' with weights given does
+the same).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ class RansacOptions:
     error_thresh: float  # threshold on the *squared* residual, like ref
     num_hypotheses: int = 512
     quality: str = "inlier"          # 'inlier'|'msac'|'mle'|'lmed'
-    sampler: str = "random"          # 'random' | 'prosac' | 'exhaustive'
+    sampler: str = "random"  # 'random'|'prosac'|'exhaustive'|'weighted'
     failure_probability: float = 0.01
     model_chunk: int = 128           # score this many models at a time
 
@@ -144,9 +146,16 @@ def draw_samples(generator, spec: MinimalSolverSpec, num_data,
     s = spec.sample_size
     if options.sampler == "weighted" or (options.sampler == "random" and
                                          sample_weights is not None):
-        raise NotImplementedError(
-            "sampler='weighted' (EVSAC) is not ported yet (ROADMAP.md "
-            "queue 1, item 14: solvers/evsac.py)")
+        # EVSAC-style probability-proportional sampling
+        # (ref evsac_sampler.h; weights from solvers/evsac.py)
+        from .evsac import weighted_samples
+        if sample_weights is None:
+            raise ValueError("sampler='weighted' draws by sample_weights "
+                             "(EVSAC's, solvers/evsac.py); none given")
+        w = sample_weights
+        if data_mask is not None:
+            w = w * data_mask
+        return weighted_samples(generator, w, s, H)
     if options.sampler == "random":
         return random_samples(generator, num_data, s, H, data_mask)
     if options.sampler == "prosac":
@@ -248,6 +257,8 @@ def ransac_batch(samples, spec: MinimalSolverSpec, data,
       num_data: optional override of N for the confidence, scalar or
         (B,).
       sort_order: optional (B, N) permutation by quality for PROSAC.
+      sample_weights: optional (B, N) sampling weights for the
+        'weighted' sampler (EVSAC).
     Returns:
       (best_model (B, ...), RansacSummary with leading B). The model is
       refined on its inliers when spec.refine is given.
@@ -327,7 +338,7 @@ def ransac(samples, spec: MinimalSolverSpec, data, options: RansacOptions,
         samples = samples[None]
     model, s = ransac_batch(
         samples, spec, {k: v[None] for k, v in data.items()}, options,
-        one(data_mask), one(num_data), one(sort_order), sample_weights)
+        one(data_mask), one(num_data), one(sort_order), one(sample_weights))
     return model[0], RansacSummary(
         inliers=s.inliers[0], num_inliers=s.num_inliers[0],
         num_hypotheses=s.num_hypotheses, confidence=s.confidence[0],

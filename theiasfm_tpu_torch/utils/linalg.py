@@ -53,12 +53,12 @@ def eigh(A):
             torch.where(bad[..., None, None], nan, V))
 
 
-def svd(A):
+def svd(A, full_matrices: bool = True):
     """U, S, Vh of (..., m, n) A; NaN where A has a non-finite entry. One
     cuSOLVER call takes P3P's largest batch, 16,384 3x3 matrices, in
     3.3 ms on the H100 (chip_smoke.py's svd probe)."""
     A, bad = _finite_stand_in(A)
-    U, S, Vh = torch.linalg.svd(A)
+    U, S, Vh = torch.linalg.svd(A, full_matrices=full_matrices)
     nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
     return (torch.where(bad[..., None, None], nan, U),
             torch.where(bad[..., None], nan, S),
@@ -73,3 +73,16 @@ def det3(A):
                             A[..., 1, 2] * A[..., 2, 0]) +
             A[..., 0, 2] * (A[..., 1, 0] * A[..., 2, 1] -
                             A[..., 1, 1] * A[..., 2, 0]))
+
+
+def inv3(A):
+    """Inverse of (..., 3, 3) A by the adjugate (no factorization); a
+    singular A gives inf or NaN."""
+    a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
+    d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
+    g, h, i = A[..., 2, 0], A[..., 2, 1], A[..., 2, 2]
+    adj = torch.stack([e * i - f * h, c * h - b * i, b * f - c * e,
+                       f * g - d * i, a * i - c * g, c * d - a * f,
+                       d * h - e * g, b * g - a * h, a * e - b * d],
+                      dim=-1).reshape(A.shape)
+    return adj / det3(A)[..., None, None]
