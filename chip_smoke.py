@@ -43,7 +43,21 @@ main paths:
 * from pixels with the builder's default options (GLOBAL) on the 24
   views (`global_24`), held to JAX's reading, its rotation averaging to
   the CPU's on the same inputs, and its model to the CPU's build from
-  the card's database; and with HYBRID on the 8 views (`hybrid`).
+  the card's database; and with HYBRID on the 8 views (`hybrid`);
+* the solvers and estimators of slice D1 (`uncalibrated`, `transforms`,
+  `radial_homography`, `evsac`, `minimal_solvers`);
+* slice D2: AKAZE (create_descriptor_extractor("AKAZE")) on the 8 views
+  and on a 5 MP view, held to JAX's feature counts and to the port's CPU
+  keypoints (`akaze`); the 8 views' AKAZE features through
+  ReconstructionBuilder(INCREMENTAL) (`akaze_incremental`); the 24 views
+  matched by the cascade hasher (`cascade_24`: INCREMENTAL, the share of
+  the brute force's matches it keeps, the card's hashes against the
+  CPU's, and the model scored by sfm/utils.alignment_and_pose_errors);
+  undistort_image at 3200 x 2400 and undistort_points on 100,000 pixels
+  (`undistort`); the L1 and box-QP solvers at the 553-view city's
+  relative-translation shape (`l1_qp`). Their gates are JAX's worst
+  readings from tests/d2_reference.py (but cascade_24's reprojection:
+  see CASCADE_GATE).
 
 Every phase prints one JSON line; any failure raises, and the script
 exits non-zero without printing a result. It imports neither JAX nor the
@@ -76,12 +90,18 @@ from theiasfm_tpu_torch import _kernels
 from theiasfm_tpu_torch.bench_problem import build_city_scene, make_problem
 from theiasfm_tpu_torch.camera import models as cm
 from theiasfm_tpu_torch.convert import features_db_from_arrays
-from theiasfm_tpu_torch.image import (SiftOptions, extract_sift,
-                                      extract_sift_batch,
+from theiasfm_tpu_torch.image import (SiftOptions,
+                                      create_descriptor_extractor,
+                                      extract_sift, extract_sift_batch,
                                       render_synthetic_views)
-from theiasfm_tpu_torch.matching import FeatureMatcher, FeatureMatcherOptions
+from theiasfm_tpu_torch.matching import (CascadeHasher, FeatureMatcher,
+                                         FeatureMatcherOptions)
+from theiasfm_tpu_torch.matching.feature_matcher import FUSED_MIN_N
 from theiasfm_tpu_torch.matching import fused_matcher as tfm
 from theiasfm_tpu_torch.math import rotation as rot
+from theiasfm_tpu_torch.math.l1_solver import (QPSolver,
+                                               constrained_l1_solve,
+                                               l1_solve, qp_solve_box)
 from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
                                        bundle_adjust_reconstruction,
                                        bundle_adjust_track,
@@ -93,7 +113,10 @@ from theiasfm_tpu_torch.sfm.pipeline import global_pipeline as tgp
 from theiasfm_tpu_torch.sfm.pipeline import incremental as tinc
 from theiasfm_tpu_torch.sfm.pipeline import twoview as tvm
 from theiasfm_tpu_torch.sfm.pose import five_point as fpm
-from theiasfm_tpu_torch.sfm.reconstruction import Reconstruction
+from theiasfm_tpu_torch.sfm.reconstruction import Camera, Reconstruction
+from theiasfm_tpu_torch.sfm.transformation import align_point_clouds
+from theiasfm_tpu_torch.sfm.undistort import undistort_image, undistort_points
+from theiasfm_tpu_torch.sfm.utils import alignment_and_pose_errors
 from theiasfm_tpu_torch.sfm.view_graph import ViewGraph
 from theiasfm_tpu_torch.sfm.reconstruction_builder import (
     ReconstructionBuilder, ReconstructionBuilderOptions)
@@ -855,12 +878,15 @@ RATIO = 0.8
 # (name, pairs B, padded rows N, D, valid rows per pair lo..hi): the
 # chunks of `frontend` (28 pairs) and of `incremental_24` (174 pairs in
 # chunks of 32: five of 32 and one of 14), whose views hold some 1,500
-# SIFT features each
+# SIFT features each; AKAZE's 64-d descriptors at the frontend chunk
+# (some 1,400 AKAZE features per view pad to 2,048 rows, where the brute
+# force takes top2_match: akaze_incremental's chunk)
 MATCH_SHAPES = [("frontend", 28, 2048, 128, 1400, 1600),
                 ("incremental_24", 32, 2048, 128, 1400, 1600),
                 ("incremental_24_last", 14, 2048, 128, 1400, 1600),
                 ("unbatched_8192", 1, 8192, 128, 8192, 8192),
-                ("ragged", 3, 200, 32, 150, 200)]
+                ("ragged", 3, 200, 32, 150, 200),
+                ("akaze_d64", 28, 2048, 64, 1400, 1600)]
 
 
 def _desc_stack(g, B, N, D, lo, hi):
@@ -1142,7 +1168,7 @@ def phase_frontend():
          card_vs_cpu_sift=list(agree), cpu_sift_s=cpu_s,
          peak_device_gib=peak)
     scene = dict(names=names, arrays=arrays, priors=priors, cams=cams,
-                 sift_s=statistics.median(warm))
+                 views=views, sift_s=statistics.median(warm))
     return counts["top2_match"], pair_counts["top2_match"], scene
 
 
@@ -1488,18 +1514,6 @@ def _rodrigues(aa):
     return np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
 
 
-def _umeyama(src, dst):
-    """Similarity (s, R, t) with dst ~ s R src + t (least squares)."""
-    mu_s, mu_d = src.mean(0), dst.mean(0)
-    sc, dc = src - mu_s, dst - mu_d
-    U, S, Vt = np.linalg.svd(dc.T @ sc / len(src))
-    D = np.eye(3)
-    D[2, 2] = np.sign(np.linalg.det(U @ Vt))
-    R = U @ D @ Vt
-    s = np.trace(np.diag(S) @ D) / ((sc ** 2).sum() / len(src))
-    return s, R, mu_d - s * R @ mu_s
-
-
 def _view_index(name):
     return int(name[4:])
 
@@ -1510,9 +1524,10 @@ def model_report(model, cams):
     views and tracks estimated, the reprojection error of every
     observation of an estimated track in an estimated view (pinhole, no
     distortion), and after a similarity alignment of the camera centres
-    to the true ones (Umeyama) the rotation errors and the position
-    errors as a fraction of the scene size (the largest distance between
-    two true centres of the estimated views)."""
+    to the true ones (Umeyama, sfm/transformation.align_point_clouds)
+    the rotation errors and the position errors as a fraction of the
+    scene size (the largest distance between two true centres of the
+    estimated views)."""
     views = sorted(model.estimated_views())
     errs = _reprojection_errors(model, views)
     out = dict(views_estimated=len(views),
@@ -1561,7 +1576,7 @@ def _aligned_errors(model, views, est, true, Rt):
     true ones (Umeyama): the rotation errors (true world->camera
     rotations Rt) and the position errors in the truth's units, with the
     scene size (the largest distance between two true centres)."""
-    s, Ra, ta = _umeyama(est, true)
+    s, Ra, ta = align_point_clouds(est, true)
     size = np.linalg.norm(true[:, None] - true[None], axis=-1).max()
     pos = np.linalg.norm(s * est @ Ra.T + ta - true, axis=1)
     rot_e = []
@@ -1725,14 +1740,16 @@ def _builder(scene, opts, device="cuda", db=None):
 
 def _builder_run(scene, opts, what, gate=(INCR_VIEWS_MIN_SHARE,
                                            INCR_REPROJ_MAX_PX),
-                 seed_module=tinc):
+                 seed_module=tinc, top2_per_chunk=2):
     """extract_and_match_features, then build_reconstruction, on the
     card: wall seconds of each (synchronized), the counts of exactly
     this run, the pairs matched, the seed pair (of seed_module's
     _initialize_from_pair; None skips it), the model's report and the
     builder (its database holds the verified matches). `gate`: the
     views share and mean reprojection error (px) the model must
-    meet."""
+    meet; `top2_per_chunk`: the top2_match launches each matcher chunk
+    must make (0 where the chunks stay under FUSED_MIN_N or the cascade
+    hasher matches)."""
     b = _builder(scene, opts)
     reset_dispatch_counts()
     n_pairs, em_s = sync_time(b.extract_and_match_features)
@@ -1741,9 +1758,9 @@ def _builder_run(scene, opts, what, gate=(INCR_VIEWS_MIN_SHARE,
     n_matched = (len(pairs) if pairs is not None else
                  len(scene["names"]) * (len(scene["names"]) - 1) // 2)
     chunks = -(-n_matched // opts.matching.pair_batch_size)
-    check(match_counts.get("top2_match", 0) == 2 * chunks,
+    check(match_counts.get("top2_match", 0) == top2_per_chunk * chunks,
           f"{what}: top2_match launched {match_counts} for {chunks} "
-          "chunks, expected 2 per chunk")
+          f"chunks, expected {top2_per_chunk} per chunk")
     reset_dispatch_counts()
     spy = SeedSpy(seed_module) if seed_module else None
     with spy or contextlib.nullcontext():
@@ -1760,7 +1777,7 @@ def _builder_run(scene, opts, what, gate=(INCR_VIEWS_MIN_SHARE,
                   f"{what}: non-finite camera")
     return dict(extract_and_match_s=em_s, reconstruct_s=rec_s,
                 pairs_matched=n_matched, pairs_verified=n_pairs,
-                chunks=chunks, top2_match=match_counts["top2_match"],
+                chunks=chunks, top2_match=match_counts.get("top2_match", 0),
                 match_launches=match_counts, device_dispatches=counts,
                 models=len(models),
                 seed_pair=spy.seed(scene["cams"]) if spy else None,
@@ -1772,20 +1789,16 @@ def phase_incremental(scene):
     views' card features in a ReconstructionBuilder(INCREMENTAL) with
     every other option at its default (SiftOptions(),
     FeatureMatcherOptions() with verification, IncrementalOptions());
-    one cold run and one warm run of extract_and_match_features and
-    build_reconstruction, one profiled build_reconstruction, and the
-    same reconstruction once on the CPU from the card's database."""
+    one run of extract_and_match_features and build_reconstruction,
+    and the same reconstruction once on the CPU from the card's
+    database. (No warm or profiled rerun: the script's time budget;
+    PERF.md keeps an `incr.*` profile.)"""
     opts = ReconstructionBuilderOptions(
         reconstruction_estimator_type="INCREMENTAL")
     held = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
-    cold, b, _ = _builder_run(scene, opts, "incremental cold")
+    cold, b, models = _builder_run(scene, opts, "incremental cold")
     peak = torch.cuda.max_memory_allocated() / 2**30
-    warm = [_builder_run(scene, opts, "incremental warm")[0]]
-    models, prof = _profile(
-        lambda: _builder(scene, opts, db=b.db).build_reconstruction(),
-        "incr.")
-    emit("incremental_profile", **prof)
     cpu_b = _builder(scene, opts, device="cpu", db=b.db)
     with SeedSpy(tinc) as spy:
         cpu_models, cpu_s = sync_time(cpu_b.build_reconstruction)
@@ -1808,11 +1821,7 @@ def phase_incremental(scene):
                gate=dict(views_min_share=INCR_VIEWS_MIN_SHARE,
                          reproj_max_px=INCR_REPROJ_MAX_PX,
                          cpu_tracks_rel=INCR_CPU_TRACKS_REL),
-               sift_s=scene["sift_s"], cold=cold, warm=warm,
-               extract_and_match_warm_s=[w["extract_and_match_s"]
-                                         for w in warm],
-               reconstruct_warm_s=[w["reconstruct_s"] for w in warm],
-               peak_device_gib=peak, peak_above_held_gib=peak - held,
+               sift_s=scene["sift_s"], cold=cold, peak_device_gib=peak, peak_above_held_gib=peak - held,
                cpu_from_card_db=cpu,
                nvidia_smi=nvidia_smi())
     emit("incremental", **res)
@@ -2055,18 +2064,15 @@ def phase_global_1dsfm(city):
     """The global pipeline at full width: build_city_scene at 553 views
     (14,000 points, 0.5 px, 5% outlier edges; `city`, from _city)
     through global_reconstruction with GlobalOptions() in float32 on the
-    card, one cold run, one warm and one profiled; then at 200 views
-    (4,000 points), where JAX reconstructs, once."""
+    card, one profiled run (the first); then at 200 views (4,000
+    points), where JAX reconstructs, once. (No unprofiled run at 553
+    views: the script's time budget.)"""
     sizes = {k: city[k] for k in ("views", "points", "tracks",
                                   "observations", "edges", "build_s")}
-    cold, _ = _global_run(city, "global_1dsfm cold", filter_spy=True)
-    warm, _ = _global_run(city, "global_1dsfm warm")
     profiled, prof = _global_run(city, "global_1dsfm profiled",
-                                 profile=True)
+                                 profile=True, filter_spy=True)
     emit("global_1dsfm_profile", **prof)
-    for run, what in ((cold, "cold"), (warm, "warm"),
-                      (profiled, "profiled")):
-        _check_poses(run, CITY[0], f"global_1dsfm {what}")
+    _check_poses(profiled, CITY[0], "global_1dsfm profiled")
     small = _city(*CITY_SMALL)
     small_run, _ = _global_run(small, "global_1dsfm 200 views")
     check(small_run["views_estimated"] >=
@@ -2076,8 +2082,7 @@ def phase_global_1dsfm(city):
           f"global_1dsfm 200 views: gate (>= "
           f"{GLOBAL_SMALL_VIEWS_MIN_SHARE:.3f} of the views, median "
           f"position < {GLOBAL_SMALL_POS_MAX}) failed: {small_run}")
-    res = dict(options="GlobalOptions()", scene=sizes, cold=cold,
-               warm=warm, profiled_wall_s=profiled["wall_s"],
+    res = dict(options="GlobalOptions()", scene=sizes, profiled=profiled,
                gate=dict(poses_views_min_share=GLOBAL_POSES_VIEWS_MIN_SHARE,
                          poses_rotation_max_deg=GLOBAL_POSES_ROT_MAX_DEG,
                          poses_position_max=GLOBAL_POSES_POS_MAX,
@@ -2792,6 +2797,501 @@ def phase_minimal_solvers():
          solvers=res, nvidia_smi=nvidia_smi())
 
 
+# ---------------------------------------------------------- features (D2)
+
+# The D2 phases' inputs and gates. The gates are JAX's worst readings on
+# the same inputs from tests/d2_reference.py (the JAX package on the CPU
+# in float32, as on a TPU; PERF.md, the D2 cells).
+# akaze: the frontend phase's 8 views and one 5 MP view (2560x1920 at
+# focal 2,400: the same field of view, under the builder's 3,200 px cap).
+AKAZE_BIG = ((2560, 1920), 2400.0)
+# JAX's valid AKAZE features (create_descriptor_extractor("AKAZE")) on
+# the 8 views and on the 5 MP view; each card view keeps at least 98%.
+AKAZE_JAX_COUNTS = [1387, 1416, 1423, 1433, 1449, 1401, 1406, 1351]
+AKAZE_BIG_JAX_COUNT = 1786
+AKAZE_COUNT_SHARE = 0.98
+# the share of the port's CPU keypoints with a JAX keypoint at the same
+# level within 0.5 px, pooled over the 8 views (every one of them: the
+# two packages keep the same keypoints): the card's keypoints hold to
+# the CPU's at least as well
+AKAZE_AGREE_MIN = 1.0
+AKAZE_AGREE_PX = 0.5
+# akaze_incremental: JAX's INCREMENTAL builder on the port's AKAZE
+# features of the 8 views, seeds 0-4: the fewest views and the largest
+# mean reprojection error (0.78837 at seed 1, rounded up at the fourth
+# decimal)
+AKAZE_INCR_GATE = (1.0, 0.7884)
+# cascade_24: JAX's INCREMENTAL builder with the cascade hasher on the 24
+# views (hasher and localization seeds 0-4): the fewest views (all 24),
+# the largest mean reprojection error (0.1306 px, printed beside the
+# card's), and the smallest share of the brute force's symmetric
+# putative matches the cascade hasher also keeps (0.99980; the port's
+# hasher draws another basis from the same seed: 0.99979-0.99984 on the
+# CPU). The card's model is held to every view and to the 24-view
+# builder phases' bound, INCR_REPROJ_MAX_PX: the card's front end builds
+# databases whose models read 0.128-0.149 px at seeds 0-4 where JAX's
+# read 0.114-0.131 (tests/d2_card_probe.py; the brute force alike),
+# while both packages' back ends agree on one database (ROADMAP queue
+# 3).
+CASCADE_JAX_REPROJ_PX = 0.13058880682179247
+CASCADE_GATE = (1.0, INCR_REPROJ_MAX_PX)
+CASCADE_SHARE_MIN = 0.9997983339279897
+# card and CPU cascade hashing (the same seed, the same basis): at most
+# this share of each pair's putative matches differs
+CASCADE_CPU_DIFF_MAX = 0.01
+# alignment_and_pose_errors against model_report's alignment
+ALIGN_REL = 1e-6
+# undistort: a 3200 x 2400 image and 100,000 pixels
+UNDISTORT_SIZE = (3200, 2400)
+UNDISTORT_POINTS = 100_000
+UNDISTORT_CAMERAS = (("PINHOLE_RADIAL_TANGENTIAL", (-0.2, 0.05)),
+                     ("DIVISION_UNDISTORTION", (-0.2,)))
+UNDISTORT_IMAGE_TOL = 1e-4
+UNDISTORT_ROUNDTRIP_PX = 1e-3
+# l1_qp: solver_problems.l1_problem / qp_problem, seed 0; the card
+# within 1e-4 (relative) of the CPU. The L1 solvers' RMS error against
+# the truth (set by the noise) at JAX's worst float32 reading over seeds
+# 0-4. Both QP solvers reach their float32 floor within 50 iterations
+# (a projected-gradient residual of 4e-7 to 3e-6, different in each
+# package), so the full runs are held to test_qp_box's bound (1e-4) and
+# the residual after QP_EARLY_ITERS iterations, where it measures the
+# iteration and not the rounding, to JAX's worst reading.
+# (JAX's worst over seeds 0-4: 1.2143e-4, 1.2144e-4, 1.7602e-3 and
+# 1.6343e-4, rounded up at the third significant digit)
+L1_QP_GATE = {"l1_solve": 1.22e-4, "constrained_l1_solve": 1.22e-4,
+              "QPSolver@early": 1.77e-3, "qp_solve_box@early": 1.64e-4}
+L1_ITERS = 200
+QP_ITERS = 1000
+QP_BOX_ITERS = 500
+QP_EARLY_ITERS = 25
+QP_KKT_MAX = 1e-4
+L1_CPU_REL = 1e-4
+
+
+def akaze_big_view(tex=None):
+    """The 5 MP view: the scene of `frontend` at 2560 x 1920."""
+    (big,), _ = render_synthetic_views(
+        _texture(0) if tex is None else tex, 1, AKAZE_BIG[0],
+        focal=AKAZE_BIG[1])
+    return big
+
+
+def akaze_views():
+    """The 8 views of `frontend` and the 5 MP view, with their cameras."""
+    tex = _texture(0)
+    views, cams = render_synthetic_views(tex, N_VIEWS, (640, 480),
+                                         focal=600.0)
+    return views, cams, akaze_big_view(tex)
+
+
+def kp_level_agree(a, b, tol=AKAZE_AGREE_PX):
+    """(hits, total): a's valid keypoints with one of b's valid keypoints
+    at the same level (sigma within 1e-4 relative) within tol px."""
+    ka, kb = a[0][a[2]], b[0][b[2]]
+    hits = 0
+    for s in np.unique(ka[:, 2]):
+        pa = ka[np.abs(ka[:, 2] - s) <= 1e-4 * s, :2]
+        pb = kb[np.abs(kb[:, 2] - s) <= 1e-4 * s, :2]
+        if len(pb):
+            d = np.linalg.norm(pa[:, None] - pb[None], axis=-1).min(1)
+            hits += int((d <= tol).sum())
+    return hits, len(ka)
+
+
+def putative_sets(db, pairs):
+    """Each pair's putative matches in db as a set of (x1, y1, x2, y2)."""
+    out = {}
+    for a, b in pairs:
+        m = db.get_match(a, b)
+        out[(a, b)] = set() if m is None else \
+            {tuple(r) for r in np.asarray(m.correspondences)}
+    return out
+
+
+def kept_share(bf, cascade):
+    """The pooled share of the brute force's putative matches that the
+    cascade hasher also keeps, over the pairs of `bf`."""
+    total = sum(len(v) for v in bf.values())
+    kept = sum(len(v & cascade[p]) for p, v in bf.items())
+    return kept / max(total, 1)
+
+
+def _extract_timed(extract, views):
+    """Each view through `extract`, synchronized: features, seconds."""
+    out, secs = [], []
+    for im in views:
+        f, sec = sync_time(lambda: extract(im))
+        out.append(f)
+        secs.append(sec)
+    return out, secs
+
+
+def phase_akaze(scene):
+    """create_descriptor_extractor("AKAZE") (NORMAL: 1,024 features per
+    octave) on the 8 views of `frontend` (`scene`) and on the 5 MP view
+    on the card: ms per image, valid features per image, peak memory;
+    the 8 views again on the CPU for the card-vs-CPU keypoint
+    agreement."""
+    t0 = time.perf_counter()
+    views, cams, names = scene["views"], scene["cams"], scene["names"]
+    big = akaze_big_view()
+    render_s = time.perf_counter() - t0
+    card = create_descriptor_extractor("AKAZE", device="cuda")
+    card(views[0])                                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    feats, secs = _extract_timed(card, views)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    big_feat, big_cold = sync_time(lambda: card(big))
+    _, big_warm = sync_time(lambda: card(big))
+    big_peak = torch.cuda.max_memory_allocated() / 2**30
+    n_feat = [int(v.sum()) for _, _, v in feats]
+    n_big = int(big_feat[2].sum())
+    for k, d, v in feats + [big_feat]:
+        check(np.isfinite(k[v]).all() and np.isfinite(d[v]).all(),
+              "akaze: non-finite features")
+        check(np.allclose(np.linalg.norm(d[v], axis=1), 1.0, atol=1e-4),
+              "akaze: descriptors not unit length")
+    for i, (n, ref) in enumerate(zip(n_feat, AKAZE_JAX_COUNTS)):
+        check(n >= AKAZE_COUNT_SHARE * ref,
+              f"akaze: view {i} keeps {n} features, JAX {ref}")
+    check(n_big >= AKAZE_COUNT_SHARE * AKAZE_BIG_JAX_COUNT,
+          f"akaze: the 5 MP view keeps {n_big}, JAX {AKAZE_BIG_JAX_COUNT}")
+
+    cpu = create_descriptor_extractor("AKAZE", device="cpu")
+    cpu_feats, cpu_secs = _extract_timed(cpu, views)
+    hits = [kp_level_agree(a, b) for a, b in zip(feats, cpu_feats)]
+    back = [kp_level_agree(b, a) for a, b in zip(feats, cpu_feats)]
+    agree = sum(h for h, _ in hits) / sum(n for _, n in hits)
+    agree_back = sum(h for h, _ in back) / sum(n for _, n in back)
+    check(agree >= AKAZE_AGREE_MIN,
+          f"akaze: {agree:.4f} of the card keypoints have a CPU keypoint "
+          f"at the same level within {AKAZE_AGREE_PX} px (JAX vs the "
+          f"port's CPU: {AKAZE_AGREE_MIN})")
+    emit("akaze", views=N_VIEWS, size=[640, 480], big_size=list(
+        AKAZE_BIG[0]), options='create_descriptor_extractor("AKAZE")',
+         big_render_s=render_s,
+         ms_per_image=statistics.median(secs) * 1e3, ms_all=[
+             x * 1e3 for x in secs], features_per_view=n_feat,
+         jax_features_per_view=AKAZE_JAX_COUNTS, peak_device_gib=peak,
+         big_ms_cold=big_cold * 1e3, big_ms=big_warm * 1e3,
+         big_features=n_big, big_jax_features=AKAZE_BIG_JAX_COUNT,
+         big_peak_device_gib=big_peak,
+         cpu_ms_per_image=statistics.median(cpu_secs) * 1e3,
+         card_in_cpu_share=agree, cpu_in_card_share=agree_back,
+         agree_min=AKAZE_AGREE_MIN, nvidia_smi=nvidia_smi())
+    priors = {n: dict(image_width=640, image_height=480, focal_length=600.0,
+                      principal_point=(320.0, 240.0)) for n in names}
+    return dict(names=names, cams=cams, priors=priors,
+                sift_s=sum(secs),
+                arrays={n: (k[v], d[v]) for n, (k, d, v) in
+                        zip(names, feats)})
+
+
+def phase_akaze_incremental(scene):
+    """The 8 views' card AKAZE features in a
+    ReconstructionBuilder(INCREMENTAL) with default options, then the
+    same reconstruction on the CPU from the card's database."""
+    opts = ReconstructionBuilderOptions(
+        reconstruction_estimator_type="INCREMENTAL")
+    bucket = next_bucket(max(len(d) for _, d in scene["arrays"].values()),
+                         128)
+    # the brute force takes top2_match from FUSED_MIN_N padded rows on
+    per_chunk = 2 if bucket >= FUSED_MIN_N else 0
+    torch.cuda.reset_peak_memory_stats()
+    run, b, models = _builder_run(scene, opts, "akaze_incremental",
+                                  gate=AKAZE_INCR_GATE,
+                                  top2_per_chunk=per_chunk)
+    cpu_models, cpu_s = sync_time(
+        _builder(scene, opts, device="cpu", db=b.db).build_reconstruction)
+    check(len(cpu_models) >= 1, "akaze_incremental: no model on the CPU")
+    cpu = dict(reconstruct_s=cpu_s,
+               **model_report(cpu_models[0], scene["cams"]))
+    check(sorted(cpu_models[0].estimated_views()) ==
+          sorted(models[0].estimated_views()),
+          f"akaze_incremental: the CPU rerun estimates other views: {cpu}")
+    n_card = run["tracks_estimated"]
+    check(abs(cpu["tracks_estimated"] - n_card) <=
+          INCR_CPU_TRACKS_REL * n_card,
+          f"akaze_incremental: CPU {cpu['tracks_estimated']} tracks, card "
+          f"{n_card}")
+    res = dict(views=len(scene["names"]), padded_rows=bucket,
+               top2_match_why=f"{bucket} padded rows < FUSED_MIN_N "
+               f"{FUSED_MIN_N}: the brute force matches" if not per_chunk
+               else "chunks reach FUSED_MIN_N",
+               gate=dict(views_min_share=AKAZE_INCR_GATE[0],
+                         reproj_max_px=AKAZE_INCR_GATE[1],
+                         cpu_tracks_rel=INCR_CPU_TRACKS_REL),
+               peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
+               cpu_from_card_db=cpu, nvidia_smi=nvidia_smi(), **run)
+    emit("akaze_incremental", **res)
+    return run["top2_match"]
+
+
+def truth_reconstruction(names, cams):
+    """The rendered views' true cameras as a Reconstruction (views only,
+    all estimated): position -R^T t, orientation aa(R)."""
+    rec = Reconstruction()
+    for n, c in zip(names, cams):
+        v = rec.add_view(n)
+        R = np.asarray(c["R"], np.float64)
+        rec.views[v].camera.extrinsics[:3] = -R.T @ c["t"]
+        rec.views[v].camera.extrinsics[3:] = rot.rotation_matrix_to_angle_axis(
+            torch.from_numpy(R)).numpy()
+        rec.views[v].is_estimated = True
+    return rec
+
+
+def _match_only(scene, pairs, matcher, device="cuda", hasher=None):
+    """FeatureMatcher(matcher, no verification) on the pairs: the
+    database, the wall seconds of match_images (synchronized), the
+    matcher (its hasher is `hasher` where given)."""
+    db = features_db_from_arrays(scene["arrays"], scene["priors"])
+    fmo = FeatureMatcher(FeatureMatcherOptions(
+        matcher=matcher, perform_geometric_verification=False), db,
+        device=device)
+    fmo._hasher = hasher
+    fmo.set_image_pairs_to_match(pairs)
+    _, sec = sync_time(fmo.match_images)
+    return db, sec, fmo
+
+
+def phase_cascade_24(scene24):
+    """incremental_24's card SIFT features, the same Fisher-vector pairs,
+    FeatureMatcherOptions(matcher="cascade_hashing"), INCREMENTAL; then
+    the matcher alone on the builder's pairs, cascade hashing against
+    the brute force on the same chunks, and the cascade hasher on the
+    CPU with the card's basis."""
+    opts = ReconstructionBuilderOptions(
+        reconstruction_estimator_type="INCREMENTAL",
+        select_image_pairs_with_global_descriptors=True,
+        num_nearest_neighbors_for_global_descriptor_matching=8,
+        matching=FeatureMatcherOptions(matcher="cascade_hashing"))
+    torch.cuda.reset_peak_memory_stats()
+    run, b, models = _builder_run(scene24, opts, "cascade_24",
+                                  gate=CASCADE_GATE, top2_per_chunk=0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pairs = b._matcher._pairs
+    hasher = b._matcher._hasher
+    P, chunks = opts.matching.pair_batch_size, run["chunks"]
+    # the (P, N1, N2) Hamming matrix of the largest chunk, float32
+    rows = next_bucket(max(len(d) for _, d in scene24["arrays"].values()),
+                       128)
+    ham_gib = min(P, len(pairs)) * rows * rows * 4 / 2**30
+
+    runs = {}
+    for m in ("cascade_hashing", "brute_force"):
+        # both routes are warm: the build above ran the hasher on these
+        # chunks, incremental_24 the brute force
+        db, sec, _ = _match_only(scene24, pairs, m, hasher=hasher)
+        runs[m] = dict(db=db, ms_per_chunk=sec / chunks * 1e3)
+    cas = putative_sets(runs["cascade_hashing"]["db"], pairs)
+    bf = putative_sets(runs["brute_force"]["db"], pairs)
+    share = kept_share(bf, cas)
+    check(share >= CASCADE_SHARE_MIN,
+          f"cascade_24: the cascade hasher keeps {share:.4f} of the brute "
+          f"force's putative matches (JAX's worst {CASCADE_SHARE_MIN})")
+
+    # card against CPU (the same seed draws the same basis on both):
+    # the bits, and the first chunk's matches
+    cpu_hasher = CascadeHasher(hasher.proj.shape[0], device="cpu")
+    check(torch.equal(cpu_hasher.proj, hasher.proj.cpu()),
+          "cascade_24: the CPU hasher's basis differs from the card's")
+    first = pairs[:P]                                # the first chunk
+    cpu_db, cpu_s, _ = _match_only(scene24, first, "cascade_hashing",
+                                   device="cpu", hasher=cpu_hasher)
+    cpu_sets = putative_sets(cpu_db, first)
+    diff = {p: len(cas[p] ^ cpu_sets[p]) for p in first}
+    worst = max(d / max(len(cas[p]), 1) for p, d in diff.items())
+    check(worst <= CASCADE_CPU_DIFF_MAX,
+          f"cascade_24: card and CPU putative matches differ in up to "
+          f"{worst:.4f} of a pair's")
+    desc = np.concatenate([d for _, d in scene24["arrays"].values()])
+    mean = desc.mean(0)
+    bits_card = hasher.hash_bits(torch.from_numpy(desc).cuda(), mean).cpu()
+    bits_cpu = cpu_hasher.hash_bits(torch.from_numpy(desc), mean)
+    bits_equal = float((bits_card == bits_cpu).float().mean())
+
+    # the model against the true cameras through sfm/utils, held to
+    # model_report's own alignment (every view an inlier: one fit)
+    pos_err, rot_err = alignment_and_pose_errors(
+        models[0], truth_reconstruction(scene24["names"], scene24["cams"]))
+    size = run["scene_size"]
+    ours = dict(median_rotation_err_deg=float(np.median(rot_err)),
+                max_rotation_err_deg=float(np.max(rot_err)),
+                median_position_err_frac=float(np.median(pos_err)) / size,
+                max_position_err_frac=float(np.max(pos_err)) / size)
+    for k, v in ours.items():
+        check(abs(v - run[k]) <= ALIGN_REL * abs(run[k]),
+              f"cascade_24: alignment_and_pose_errors {k} {v} against "
+              f"model_report's {run[k]}")
+    per_pair = {f"{_view_index(a)}-{_view_index(b_)}":
+                [len(cas[(a, b_)]), len(bf[(a, b_)])] for a, b_ in pairs}
+    res = dict(views=len(scene24["names"]), pairs=len(pairs),
+               matcher_ms_per_chunk={m: r["ms_per_chunk"]
+                                     for m, r in runs.items()},
+               putative_per_pair_cascade_bf=per_pair,
+               putative_cascade=sum(len(v) for v in cas.values()),
+               putative_bf=sum(len(v) for v in bf.values()),
+               bf_kept_share=share, share_min=CASCADE_SHARE_MIN,
+               card_vs_cpu_pair_diff_max=worst, cpu_match_s=cpu_s,
+               card_vs_cpu_bits_equal=bits_equal,
+               hamming_matrix_gib=ham_gib, peak_device_gib=peak,
+               pose_errors_via_sfm_utils=ours,
+               gate=dict(views_min_share=CASCADE_GATE[0],
+                         reproj_max_px=CASCADE_GATE[1]),
+               jax_worst_reproj_px=CASCADE_JAX_REPROJ_PX,
+               nvidia_smi=nvidia_smi(), **run)
+    emit("cascade_24", **res)
+
+
+def _camera(model, params, size):
+    cam = Camera(model_type=getattr(cm.CameraModelType, model))
+    W, H = size
+    cam.intrinsics[:5] = (0.9 * W, 1.0, 0.0, W / 2.0, H / 2.0)
+    cam.intrinsics[5:5 + len(params)] = params
+    return cam
+
+
+def _distort_px(cam, und):
+    """Undistorted pixels -> distorted pixels through the camera model,
+    in float64 on the card: the forward division model cancels in
+    float32 (1 - sqrt(1 - 4 k r^2) near the centre loses up to 0.24 px
+    at this focal length), so the round trip reads the undistortion's
+    error alone."""
+    intr = torch.as_tensor(cam.intrinsics, dtype=torch.float64,
+                           device="cuda")
+    xy = cm._remove_calibration(intr, torch.as_tensor(
+        und, dtype=torch.float64, device="cuda"))
+    return cm._apply_calibration(intr, cm.distort(
+        int(cam.model_type), intr, xy)).cpu().numpy()
+
+
+def phase_undistort():
+    """undistort_image of a 3200 x 2400 float image and undistort_points
+    of 100,000 pixels under each camera model: ms on the card, the card
+    against the CPU, distort(undistort(x)) against x."""
+    from scipy import ndimage
+    W, H = UNDISTORT_SIZE
+    tex = _texture(0)
+    img = ndimage.zoom(tex, (H / tex.shape[0], W / tex.shape[1]),
+                       order=1).astype(np.float32)
+    g = np.random.default_rng(5)
+    pts = g.uniform((0, 0), (W - 1, H - 1), size=(UNDISTORT_POINTS, 2))
+    out = {}
+    for model, params in UNDISTORT_CAMERAS:
+        cam = _camera(model, params, UNDISTORT_SIZE)
+        undistort_image(cam, img, device="cuda")             # warm
+        card, t_img = sync_time(lambda: undistort_image(cam, img,
+                                                        device="cuda"))
+        cpu = undistort_image(cam, img, device="cpu")
+        img_err = float(np.abs(card - cpu).max())
+        check(card.shape == img.shape and np.isfinite(card).all(),
+              f"undistort {model}: image shape or values")
+        check(img_err <= UNDISTORT_IMAGE_TOL,
+              f"undistort {model}: card vs CPU image {img_err}")
+        undistort_points(cam, pts, device="cuda")            # warm
+        und, t_pts = sync_time(lambda: undistort_points(cam, pts,
+                                                        device="cuda"))
+        und_cpu = undistort_points(cam, pts, device="cpu")
+        pts_err = float(np.abs(und - und_cpu).max())
+        back = float(np.abs(_distort_px(cam, und) - pts).max())
+        check(back <= UNDISTORT_ROUNDTRIP_PX,
+              f"undistort {model}: distort(undistort(x)) off by {back} px")
+        check(pts_err <= UNDISTORT_ROUNDTRIP_PX,
+              f"undistort {model}: card vs CPU points {pts_err} px")
+        out[model] = dict(params=list(params), image_ms=t_img * 1e3,
+                          points_ms=t_pts * 1e3, image_card_vs_cpu=img_err,
+                          points_card_vs_cpu_px=pts_err,
+                          roundtrip_px=back)
+    emit("undistort", size=list(UNDISTORT_SIZE), points=UNDISTORT_POINTS,
+         dtype="float32", models=out, nvidia_smi=nvidia_smi())
+
+
+def l1_qp_readings(device, seed=0, problems=None, early=True):
+    """The four solvers on solver_problems' seed problems (or the given
+    (l1_problem, qp_problem)) in float32 on `device`: {solver: (solution
+    numpy, reading, seconds)}, with the QP solvers also after
+    QP_EARLY_ITERS iterations unless `early` is False; the readings are
+    the RMS error against the truth (L1), and the projected-gradient
+    residual (QP). tests/d2_reference.py reads JAX's alike."""
+    lp, qp = problems or (sp.l1_problem(seed), sp.qp_problem(seed))
+    t = {k: torch.as_tensor(v, dtype=torch.float32, device=device)
+         for k, v in {**lp, **qp}.items()}
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def timed(fn):
+        if device == "cuda":
+            fn()                                             # warm
+        sync()
+        t0 = time.perf_counter()
+        x = fn()
+        sync()
+        return x.cpu().numpy(), time.perf_counter() - t0
+
+    def qp_solver(iters):
+        s = QPSolver(t["P"], t["q"], max_num_iterations=iters)
+        s.set_lower_bound(t["lo"])
+        s.set_upper_bound(t["hi"])
+        return s.solve()
+    out = {}
+    x, sec = timed(lambda: l1_solve(t["A"], t["b"], iters=L1_ITERS))
+    out["l1_solve"] = (x, sp.l1_recovery(x, lp["x_true"]), sec)
+    x, sec = timed(lambda: constrained_l1_solve(t["A"], t["b"], t["C"],
+                                                t["d"], iters=L1_ITERS))
+    out["constrained_l1_solve"] = (x, sp.l1_recovery(x, lp["x_true"]), sec)
+    runs = [("", QP_ITERS, QP_BOX_ITERS)]
+    if early:
+        runs.append(("@early", QP_EARLY_ITERS, QP_EARLY_ITERS))
+    for suffix, it_admm, it_box in runs:
+        x, sec = timed(lambda: qp_solver(it_admm))
+        out["QPSolver" + suffix] = (x, sp.qp_kkt(x, **qp), sec)
+        x, sec = timed(lambda: qp_solve_box(t["P"], t["q"], t["lo"],
+                                            t["hi"], iters=it_box))
+        out["qp_solve_box" + suffix] = (x, sp.qp_kkt(x, **qp), sec)
+    return out, lp
+
+
+def phase_l1_qp():
+    """l1_solve and constrained_l1_solve on A of 16,590 x 1,659 (10%
+    gross outliers, 553 inequality rows), QPSolver and qp_solve_box at
+    n = 1,659, float32 on the card: ms per solve, recovery against JAX's
+    worst reading, the card against the CPU."""
+    problems = (sp.l1_problem(0), sp.qp_problem(0))
+    card, lp = l1_qp_readings("cuda", problems=problems)
+    # the CPU reruns the full runs (the 25-step runs are their start)
+    cpu, _ = l1_qp_readings("cpu", problems=problems, early=False)
+    # least squares for test_math_solvers' comparison, float64 on the card
+    x_ls = torch.linalg.lstsq(
+        torch.from_numpy(lp["A"]).cuda(),
+        torch.from_numpy(lp["b"]).cuda()[:, None]).solution[:, 0]
+    ls_rms = sp.l1_recovery(x_ls.cpu().numpy(), lp["x_true"])
+    res = {}
+    for name, (x, reading, sec) in card.items():
+        limit = L1_QP_GATE.get(name, QP_KKT_MAX)
+        check(np.isfinite(x).all(), f"l1_qp {name}: not finite")
+        check(reading <= limit, f"l1_qp {name}: reading {reading} > {limit}")
+        res[name] = dict(ms=sec * 1e3, reading=reading, limit=limit)
+        if name in cpu:
+            xc = cpu[name][0]
+            rel = float(np.linalg.norm(x - xc) / np.linalg.norm(xc))
+            check(rel <= L1_CPU_REL, f"l1_qp {name}: card vs CPU {rel}")
+            res[name].update(card_vs_cpu_rel=rel, cpu_ms=cpu[name][2] * 1e3,
+                             cpu_reading=cpu[name][1])
+    xc = card["constrained_l1_solve"][0]
+    check(np.all(xc[:sp.L1_INEQUALITIES] >= 0.2 - 1e-5),
+          "l1_qp: constrained_l1_solve breaks its constraints")
+    check(card["l1_solve"][1] < 0.3 * ls_rms,
+          f"l1_qp: l1_solve {card['l1_solve'][1]} not below 0.3 x least "
+          f"squares {ls_rms}")
+    emit("l1_qp", shape=list(sp.L1_SHAPE), inequalities=sp.L1_INEQUALITIES,
+         qp_n=sp.QP_N, iters=dict(l1=L1_ITERS, qp=QP_ITERS,
+                                  qp_box=QP_BOX_ITERS, early=QP_EARLY_ITERS),
+         readings="rms error against the truth (L1), projected-gradient "
+         "residual (QP)", least_squares_rms=ls_rms, solvers=res,
+         nvidia_smi=nvidia_smi())
+
+
 # ----------------------------------------------------------------- main
 
 def main():
@@ -2824,6 +3324,13 @@ def main():
     phase_radial_homography()
     phase_evsac(scene)
     phase_minimal_solvers()
+    d2_start = time.perf_counter()
+    akaze_scene = phase_akaze(scene)
+    n_akaze = phase_akaze_incremental(akaze_scene)
+    phase_cascade_24(scene24)
+    phase_undistort()
+    phase_l1_qp()
+    d2_s = time.perf_counter() - d2_start
 
     summary = []
     for (name, layout), replaces in REPLACES.items():
@@ -2854,9 +3361,14 @@ def main():
              dict(incremental_launches=n_incr,
                   incremental_24_launches=n_incr24,
                   global_24_launches=n_global24,
+                  akaze_incremental_launches=n_akaze,
+                  cascade_24_launches=0,
                   incremental_24_max_abs_err=max(
                       err_incr24, mres["incremental_24"]["max_abs_err"],
-                      mres["incremental_24_last"]["max_abs_err"]))),
+                      mres["incremental_24_last"]["max_abs_err"]),
+                  **{f"d64_{k}": mres["akaze_d64"][k] for k in (
+                      "max_abs_err", "ms", "plain_ms", "bound_ms",
+                      "bound_by", "library_ms")})),
             ("top2_match[B=1]", "unbatched_8192", 30, n_pair, {})):
         rec = mres[shape]
         summary.append(dict(
@@ -2867,7 +3379,7 @@ def main():
             bound_by=rec["bound_by"], library_ms=rec["library_ms"],
             shape=f"{shape}: B={rec['B']} M=N={rec['N']} D={rec['D']}",
             **extra))
-    emit("done", seconds=time.perf_counter() - timer_start)
+    emit("done", seconds=time.perf_counter() - timer_start, d2_seconds=d2_s)
     print(json.dumps({"kernels": summary}))
     print(nvidia_smi())
     print(json.dumps({"ok": True, "device": {

@@ -150,14 +150,11 @@ def _two_view_features(seed=0, n=150):
     dict(guided_matching=True),
 ], ids=["verification", "cascade_hashing", "guided"])
 def test_unported_options_raise(kw):
-    """Cascade hashing still raises. Verification (the default) and
-    guided matching are ported: the matcher verifies a synthetic pair
-    on the CPU and stores its relative pose."""
-    if kw.get("matcher") == "cascade_hashing":
-        with pytest.raises(NotImplementedError, match="ROADMAP.*item 15"):
-            tm.FeatureMatcher(tm.FeatureMatcherOptions(**kw),
-                              features_db_from_arrays({}), device="cpu")
-        return
+    """No option raises any more. Verification (the default) and guided
+    matching verify a synthetic pair on the CPU and store its relative
+    pose; cascade hashing (verification off) stores the pair's putative
+    matches: all 150 true correspondences and none of the 30 extra
+    features."""
     features, aa = _two_view_features()
     prior = dict(image_width=640, image_height=480, focal_length=600.0,
                  principal_point=(320.0, 240.0))
@@ -166,6 +163,10 @@ def test_unported_options_raise(kw):
     fm.add_images(sorted(features))
     assert fm.match_images() == 1
     m = db.get_match("img0", "img1")
+    if kw.get("matcher") == "cascade_hashing":
+        assert m.twoview_info.num_verified_matches == \
+            len(m.correspondences) == 150
+        return
     info = m.twoview_info
     assert info.num_verified_matches == len(m.correspondences) >= 130
     assert 0 < info.num_homography_inliers <= 180

@@ -521,3 +521,82 @@ def test_incremental_entry_points_raise_without_card():
     assert localize_views_batch(g, rec, [0], LocalizeOptions(),
                                 device="cpu") == {}
     ReconstructionBuilder(ReconstructionBuilderOptions(), device="cpu")
+
+
+def test_d2_entry_points_raise_without_card():
+    """AKAZE, the descriptor-extractor factory's extractors, the cascade
+    hasher, the L1/QP solvers given arrays, the rotation alignment and
+    the undistortion default to the card and refuse to fall back to the
+    CPU; on the CPU when asked."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    import numpy as np
+    from theiasfm_tpu_torch import convert
+    from theiasfm_tpu_torch.image import (create_descriptor_extractor,
+                                          extract_akaze)
+    from theiasfm_tpu_torch.matching import CascadeHasher
+    from theiasfm_tpu_torch.math import l1_solver as l1
+    from theiasfm_tpu_torch.sfm.reconstruction import Camera, Reconstruction
+    from theiasfm_tpu_torch.sfm.transformation import align_rotations
+    from theiasfm_tpu_torch.sfm.undistort import (undistort_image,
+                                                  undistort_points,
+                                                  undistort_reconstruction)
+    img = np.zeros((48, 48), np.float32)
+    A, b = np.eye(3), np.ones(3)
+    cam = Camera()
+    calls = [
+        lambda **k: extract_akaze(img, **k),
+        lambda **k: create_descriptor_extractor("AKAZE", **k)(img),
+        lambda **k: CascadeHasher(8, **k),
+        lambda **k: convert.cascade_hasher_from_state(np.ones((8, 128)),
+                                                      **k),
+        lambda **k: l1.l1_solve(A, b, iters=2, **k),
+        lambda **k: l1.constrained_l1_solve(A, b, -A, -b, iters=2, **k),
+        lambda **k: l1.qp_solve_admm(A, b, -b, b, iters=2, **k),
+        lambda **k: l1.QPSolver(A, b, max_num_iterations=2, **k).solve(),
+        lambda **k: l1.qp_solve_box(A, b, -b, b, iters=2, **k),
+        lambda **k: align_rotations(np.zeros((2, 3)), np.zeros((2, 3)),
+                                    **k),
+        lambda **k: undistort_points(cam, np.zeros((2, 2)), **k),
+        lambda **k: undistort_image(cam, img, **k),
+        lambda **k: undistort_reconstruction(Reconstruction(), **k)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    for call in calls:
+        call(device="cpu")
+
+
+def test_cascade_builder_runs_without_jax():
+    """With jax and theiasfm_tpu unimportable: the 6-view scene's
+    features (one 128-d descriptor per point, a little noise per view)
+    in the builder's database, FeatureMatcherOptions(matcher=
+    "cascade_hashing") with verification, and the INCREMENTAL estimator
+    on the CPU; nothing is built or loaded."""
+    _run(_SIX_VIEWS + textwrap.dedent("""
+        from theiasfm_tpu_torch.matching import FeatureMatcherOptions
+        point_desc = rng.normal(size=(100, 128))
+        features = {}
+        for n, o in zip(names, obs):
+            d = point_desc + 0.05 * rng.normal(size=(100, 128))
+            features[n] = (np.concatenate([o, np.ones((100, 2))], 1),
+                           (d / np.linalg.norm(d, axis=1, keepdims=True)
+                            ).astype(np.float32))
+        db = features_db_from_arrays(
+            features, {n: dict(image_width=800, image_height=800,
+                               focal_length=700.0,
+                               principal_point=(400.0, 400.0))
+                       for n in names})
+        b = ReconstructionBuilder(ReconstructionBuilderOptions(
+            reconstruction_estimator_type="INCREMENTAL",
+            matching=FeatureMatcherOptions(matcher="cascade_hashing")),
+            db, device="cpu")
+        for n in names:
+            b.add_image(n)
+        assert b.extract_and_match_features() == 15
+        assert b._matcher._hasher.proj.shape == (128, 128)
+        models = b.build_reconstruction()
+        assert len(models) == 1, models
+        assert len(models[0].estimated_views()) == 6
+        assert len(models[0].estimated_tracks()) > 80
+    """) + _NOTHING_BUILT)

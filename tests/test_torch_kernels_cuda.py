@@ -262,10 +262,12 @@ def _top2_agree(got, ref):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,M,N,D", [(3, 200, 200, 32), (1, 300, 700, 100),
-                                     (2, 64, 1, 7), (1, 130, 129, 256)])
+                                     (2, 64, 1, 7), (1, 130, 129, 256),
+                                     (28, 2048, 2048, 64)])
 def test_top2_match_matches_plain_on_card(B, M, N, D):
-    """Ragged M, N and D (neither a tile multiple), a single key, and
-    D = 256; a fifth of the keys masked to 1e30."""
+    """Ragged M, N and D (neither a tile multiple), a single key, D =
+    256, and the AKAZE matcher's chunk (28 pairs of 2048 rows, D = 64:
+    four k-chunks of 16); a fifth of the keys masked to 1e30."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from theiasfm_tpu_torch.matching import fused_matcher as tfm

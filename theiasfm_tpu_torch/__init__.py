@@ -44,7 +44,16 @@ Ported so far:
   partial-rotation family), the uncalibrated and transform estimators
   (`sfm/estimators/`), EVSAC's weighted sampler (`solvers/evsac.py`) and
   `math/{gauss_jordan,probability}.py`; `solver_problems.py` makes
-  seeded synthetic problems for them.
+  seeded synthetic problems for them;
+* AKAZE (`image/akaze.py`) and `image.create_descriptor_extractor`, the
+  cascade hasher (`matching/cascade_hasher.py`, the feature matcher's
+  `matcher="cascade_hashing"`), the L1 and box-QP solvers
+  (`math/l1_solver.py`), `math/normalized_cut.py`, alignment and
+  reconstruction transforms (`sfm/transformation.py`, `sfm/utils.py`),
+  undistortion (`sfm/undistort.py`), the EXIF reader with its own copy
+  of the sensor database (`sfm/exif_reader.py`, `data/`), GPS
+  conversions (`sfm/gps_converter.py`) and `utils/{lru_cache,
+  mutable_priority_queue}.py`, in plain PyTorch and numpy.
 
 The kernels are built at first use by `_kernels.py`. Entry points run
 on the device of the tensors they are given; the constructors and entry
@@ -53,8 +62,10 @@ points that build their own tensors (`bench_problem.make_problem`,
 `matching.FeatureMatcher`, `Reconstruction.to_ba_problem`, the
 `sfm.ba` entry points, the verification's and the incremental
 pipeline's entry points in `sfm.pipeline`, the ReconstructionBuilder,
-the Fisher-vector and feature extractors, `solver_problems.run_minimal`)
-default to `device="cuda"`
+the Fisher-vector and feature extractors, `solver_problems.run_minimal`,
+`image.extract_akaze`, `matching.CascadeHasher`, the L1/QP solvers given
+arrays, `sfm.transformation.align_rotations`, the `sfm.undistort`
+functions) default to `device="cuda"`
 and raise when no card is present; the verification and the
 localization also raise when their torch.Generator or sample indices
 lie on another device.

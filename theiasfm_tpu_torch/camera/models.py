@@ -114,14 +114,23 @@ def _distort_fov(intr, xy):
 
 def _distort_division(intr, xy):
     """Division-undistortion model: forward distortion solves
-    r_u = r_d / (1 + k r_d^2) for r_d."""
+    r_u = r_d / (1 + k r_d^2) for r_d.
+
+    The root (1 - sqrt(1 - 4 k r_u^2)) / (2 k r_u) cancels in float32
+    near the image centre (0.24 px lost at a 2,880 px focal length); it
+    is computed as 2 r_u / (1 + sqrt(1 - 4 k r_u^2)), the same value in
+    exact arithmetic. Beyond the model's range (1 - 4 k r_u^2 < 0) the
+    root stays 1 / (2 k r_u), as the JAX module's clamp gives it."""
     k = intr[..., 5:6]
     ru = torch.linalg.norm(xy, dim=-1, keepdim=True)
     a = k * ru
-    disc = torch.sqrt(torch.clamp(1.0 - 4.0 * a * ru, min=0.0))
+    arg = 1.0 - 4.0 * a * ru
+    disc = torch.sqrt(torch.clamp(arg, min=0.0))
     denom = 2.0 * a
     flat = torch.abs(denom) < 1e-12
-    rd = torch.where(flat, ru, (1.0 - disc) / _where(flat, 1.0, denom))
+    rd = torch.where(flat | (arg >= 0), 2.0 * ru / (1.0 + disc),
+                     1.0 / _where(flat, 1.0, denom))
+    rd = torch.where(flat, ru, rd)
     scale = _where(ru < 1e-12, 1.0, rd / _where(ru < 1e-12, 1.0, ru))
     return xy * scale
 

@@ -20,6 +20,10 @@ as the JAX package's database holds them (numpy arrays per image name)
 and the intrinsics priors as plain field dicts, and builds the port's
 in-memory features-and-matches database.
 
+Cascade hashing: `cascade_hasher_from_state` takes the JAX
+CascadeHasher's projection basis (`np.asarray(hasher.proj)`, (D, 128))
+and builds the port's hasher on it, so both hash alike.
+
 Nothing here imports JAX or the JAX package.
 """
 from __future__ import annotations
@@ -149,3 +153,13 @@ def view_graph_from_state(edges: dict) -> ViewGraph:
     for (v1, v2), info in edges.items():
         graph.add_edge(int(v1), int(v2), two_view_info_from_state(info))
     return graph
+
+
+def cascade_hasher_from_state(proj, num_candidates: int = 10,
+                              device="cuda"):
+    """A JAX CascadeHasher's basis (numpy (D, 128)) -> the port's
+    CascadeHasher on `device` with that basis."""
+    from .matching.cascade_hasher import CascadeHasher
+    proj = np.array(proj, np.float32)
+    return CascadeHasher(proj.shape[0], num_candidates=num_candidates,
+                         device=device, proj=proj)

@@ -259,6 +259,28 @@ def _hist_orientation(w, a):
     return (peak[..., 0] + delta + 0.5) * (2 * math.pi / _ORI_BINS)
 
 
+def _keypoint_orientation_maps(mag_pyr, ang_pyr, sl, iy, ix, sigma_rel):
+    """Dominant orientation from full magnitude/angle maps by per-sample
+    gathers, for callers that already hold polar gradient maps (AKAZE;
+    SIFT itself takes the patch route of _keypoint_orientation).
+    mag_pyr/ang_pyr (L, H, W); sl/iy/ix (K,) integer; sigma_rel (K,).
+    The (2r+1)^2 window is clipped to the map at its border."""
+    r = _WIN // 2
+    L, H, W = mag_pyr.shape
+    d = torch.arange(-r, r + 1, device=mag_pyr.device)
+    dy, dx = torch.meshgrid(d, d, indexing="ij")
+    dy, dx = dy.reshape(-1), dx.reshape(-1)                 # (P,)
+    ys = (iy[:, None] + dy).clamp(0, H - 1)
+    xs = (ix[:, None] + dx).clamp(0, W - 1)
+    flat = (sl[:, None] * H + ys) * W + xs                  # (K, P)
+    m = mag_pyr.reshape(-1)[flat]
+    a = ang_pyr.reshape(-1)[flat]
+    d2 = (dy * dy + dx * dx).to(m.dtype)
+    w_sigma = 1.5 * sigma_rel
+    w = torch.exp(-d2 / (2.0 * w_sigma[:, None] ** 2)) * m
+    return _hist_orientation(w, a)
+
+
 def _keypoint_orientation(pgx, pgy, sigma_rel):
     """Dominant gradient orientation per keypoint from its patch.
 

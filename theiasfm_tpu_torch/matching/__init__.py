@@ -1,4 +1,5 @@
 from .brute_force import match_descriptors, match_descriptors_batch  # noqa: F401
+from .cascade_hasher import CascadeHasher  # noqa: F401
 from .database import (  # noqa: F401
     FeaturesAndMatchesDatabase, InMemoryFeaturesAndMatchesDatabase,
     DiskFeaturesAndMatchesDatabase, ImagePairMatch, KeypointsAndDescriptors,

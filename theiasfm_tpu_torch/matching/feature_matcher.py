@@ -12,13 +12,22 @@ default) the chunk's pairs with enough putative matches are verified
 in one batched call (sfm/pipeline/geometric_verification.py:
 5-pt RANSAC, homography count, optional guided matching, two-view BA,
 triangulation gates) on the matcher's device, from hypotheses drawn by
-the matcher's generator there. Cascade hashing raises
-NotImplementedError.
+the matcher's generator there.
+
+With matcher="cascade_hashing" the JAX module's cascade branch runs
+instead of the top-2 matchers: one CascadeHasher per matcher (built on
+the first chunk's descriptor width, seeded with the options' seed), the
+chunk's mean descriptor computed on the host in numpy float32 as the JAX
+module writes it (so the bits are JAX's for the same basis), the pair
+batch in one batched call, and no symmetric pass (the JAX branch ignores
+keep_only_symmetric_matches). Verification then runs as on the brute
+force path.
 
 A chunk runs under profiler ranges that chip_smoke.py reads for its
 time breakdown: "match.pad" (host padding and the copy to the device),
-"match.top2" (the matcher and the copy back), the verification's
-"verify.*" ranges and "match.store" (the database puts).
+"match.top2" (the matcher) or "match.cascade" (the cascade hasher),
+the verification's "verify.*" ranges and "match.store" (the database
+puts).
 """
 from __future__ import annotations
 
@@ -34,6 +43,7 @@ from ..sfm.view_graph import TwoViewInfo
 from ..utils import next_bucket
 from ..utils.device import resolve_device
 from .brute_force import match_descriptors_batch
+from .cascade_hasher import CascadeHasher
 from .database import FeaturesAndMatchesDatabase, ImagePairMatch
 from .fused_matcher import match_descriptors_fused_batch
 
@@ -65,11 +75,7 @@ class FeatureMatcher:
 
     def __init__(self, options: FeatureMatcherOptions,
                  db: FeaturesAndMatchesDatabase, device="cuda"):
-        if options.matcher == "cascade_hashing":
-            raise NotImplementedError(
-                "matcher='cascade_hashing' is not ported yet (ROADMAP.md "
-                "queue 1, item 15: matching/cascade_hasher.py)")
-        if options.matcher != "brute_force":
+        if options.matcher not in ("brute_force", "cascade_hashing"):
             raise ValueError(f"unknown matcher {options.matcher!r}")
         self.options = options
         self.db = db
@@ -80,6 +86,7 @@ class FeatureMatcher:
         # (the JAX module's PRNGKey(seed))
         self._generator = torch.Generator(self.device).manual_seed(
             options.seed)
+        self._hasher: Optional[CascadeHasher] = None
 
     def add_image(self, name: str):
         if name not in self._names:
@@ -110,21 +117,25 @@ class FeatureMatcher:
 
     def _match_chunk(self, chunk) -> int:
         with record_function("match.pad"):
-            feats, args, kps = self._pad_chunk(chunk)
-        with record_function("match.top2"):
-            if self.device.type == "cuda" and \
-                    args[0].shape[1] >= FUSED_MIN_N:
-                # one top2_match launch for the whole pair batch, one
-                # more for the reverse pass of the symmetric check
-                match = match_descriptors_fused_batch
-            else:
-                match = match_descriptors_batch
-            with torch.no_grad():
-                idx2, valid, _ = match(
-                    *args, lowes_ratio=self.options.lowes_ratio,
-                    symmetric=self.options.keep_only_symmetric_matches)
-            idx2 = idx2.cpu().numpy()
-            valid = valid.cpu().numpy()
+            feats, host, args, kps = self._pad_chunk(chunk)
+        if self.options.matcher == "cascade_hashing":
+            with record_function("match.cascade"):
+                idx2, valid = self._cascade(host, args)
+        else:
+            with record_function("match.top2"):
+                if self.device.type == "cuda" and \
+                        args[0].shape[1] >= FUSED_MIN_N:
+                    # one top2_match launch for the whole pair batch, one
+                    # more for the reverse pass of the symmetric check
+                    match = match_descriptors_fused_batch
+                else:
+                    match = match_descriptors_batch
+                with torch.no_grad():
+                    idx2, valid, _ = match(
+                        *args, lowes_ratio=self.options.lowes_ratio,
+                        symmetric=self.options.keep_only_symmetric_matches)
+        idx2 = idx2.cpu().numpy()
+        valid = valid.cpu().numpy()
         # putative matches per pair: (pair index, a, b, corr (Mi, 4))
         putative = []
         for i, (a, b) in enumerate(chunk):
@@ -150,11 +161,27 @@ class FeatureMatcher:
                     correspondences=corr))
         return len(results)
 
+    def _cascade(self, host, args):
+        """The chunk's pairs through the cascade hasher in one batched
+        call; the mean over the chunk's real descriptor rows (host, the
+        padded numpy stacks) is the JAX module's numpy float32 mean."""
+        h1, h2, k1, k2 = host
+        D = h1.shape[-1]
+        if self._hasher is None:
+            self._hasher = CascadeHasher(D, seed=self.options.seed,
+                                         device=self.device)
+        mean = np.concatenate([h1.reshape(-1, D)[k1.reshape(-1)],
+                               h2.reshape(-1, D)[k2.reshape(-1)]]).mean(0)
+        d1, d2, m1, m2 = args
+        idx2, valid, _ = self._hasher.match(
+            d1, d2, mean, m1, m2, lowes_ratio=self.options.lowes_ratio)
+        return idx2, valid
+
     def _pad_chunk(self, chunk):
         """The chunk's features, its descriptor stacks and masks padded
-        to a shared 128-multiple bucket on the device, and its keypoints
-        (P, max_n, 4) padded alike on the host (guided matching reads
-        them)."""
+        to a shared 128-multiple bucket on the host and on the device,
+        and its keypoints (P, max_n, 4) padded alike on the host (guided
+        matching reads them)."""
         feats = {}
         for (a, b) in chunk:
             for n in (a, b):
@@ -180,8 +207,9 @@ class FeatureMatcher:
             kp2p[i, :nb] = fb.keypoints[:, :4]
             m1[i, :na] = True
             m2[i, :nb] = True
-        return feats, [torch.from_numpy(x).to(self.device)
-                       for x in (d1, d2, m1, m2)], (kp1p, kp2p)
+        host = (d1, d2, m1, m2)
+        return feats, host, [torch.from_numpy(x).to(self.device)
+                             for x in host], (kp1p, kp2p)
 
     def _verify(self, putative, args, kps):
         """One batched verification of the chunk's putative pairs on the

@@ -525,3 +525,59 @@ def run_minimal(name, inputs, dtype=torch.float32, device="cuda",
 
 def minimal_hits(name, outputs, truth):
     return MINIMAL_SOLVERS[name][2](outputs, truth)
+
+
+# ------------------------------------------------ L1 and box-QP problems
+
+# the dense shape of the relative-translation system of a 1DSfM-scale
+# view graph: 5,530 relative translations (3 rows each) over 553 views'
+# positions (3 unknowns each); 553 inequality rows
+L1_SHAPE = (16_590, 1_659)
+L1_INEQUALITIES = 553
+QP_N = 1_659
+
+
+def l1_problem(seed, m=L1_SHAPE[0], n=L1_SHAPE[1], outliers=0.1,
+               n_ineq=L1_INEQUALITIES):
+    """An L1 regression as tests/test_math_solvers.py builds one, at
+    (m, n): A and x_true normal (x_true >= 0.5 in magnitude, positive),
+    b = A x_true + N(0, 0.01), a share `outliers` of the rows plus
+    N(0, 20); and n_ineq constraints -x_i <= -0.2 on the first n_ineq
+    unknowns (not binding at x_true). float64 arrays."""
+    rng = np.random.default_rng(seed)
+    x_true = np.abs(rng.normal(size=n)) + 0.5
+    A = rng.normal(size=(m, n))
+    b = A @ x_true + rng.normal(scale=0.01, size=m)
+    k = int(round(outliers * m))
+    idx = rng.choice(m, k, replace=False)
+    b[idx] += rng.normal(scale=20.0, size=k)
+    C = -np.eye(n)[:n_ineq]
+    d = np.full(n_ineq, -0.2)
+    return dict(A=A, b=b, C=C, d=d, x_true=x_true)
+
+
+def qp_problem(seed, n=QP_N):
+    """A box QP as tests/test_math_solvers.py's test_qp_box builds one,
+    at n: P = M M^T / n + I (eigenvalues in [1, ~5]), q = -P x_uncon
+    with x_uncon normal, box [-0.5, 0.5]. float64 arrays."""
+    rng = np.random.default_rng(seed)
+    M = rng.normal(size=(n, n))
+    P = M @ M.T / n + np.eye(n)
+    x_uncon = rng.normal(size=n)
+    return dict(P=P, q=-P @ x_uncon, lo=np.full(n, -0.5),
+                hi=np.full(n, 0.5))
+
+
+def l1_recovery(x, x_true):
+    """RMS error of an L1 solution against the truth."""
+    x = np.asarray(x, np.float64)
+    return float(np.linalg.norm(x - x_true) / np.sqrt(len(x_true)))
+
+
+def qp_kkt(x, P, q, lo, hi):
+    """The projected-gradient residual max |x - clip(x - (P x + q), lo,
+    hi)| of a box-QP solution: 0 exactly at the optimum (the KKT
+    conditions test_qp_box checks one by one)."""
+    x = np.asarray(x, np.float64)
+    g = P @ x + q
+    return float(np.abs(x - np.clip(x - g, lo, hi)).max())

@@ -86,3 +86,13 @@ def inv3(A):
                        d * h - e * g, b * g - a * h, a * e - b * d],
                       dim=-1).reshape(A.shape)
     return adj / det3(A)[..., None, None]
+
+
+def cholesky(A):
+    """Lower Cholesky factor of symmetric (..., n, n) A; NaN where A is
+    not positive definite (JAX's cho_factor returns NaN there, and
+    torch.linalg.cholesky raises). No host sync: the factorization's
+    error code stays on the device."""
+    L, info = torch.linalg.cholesky_ex(A)
+    nan = torch.full((), float("nan"), dtype=A.dtype, device=A.device)
+    return torch.where((info == 0)[..., None, None], L, nan)
