@@ -56,8 +56,12 @@ main paths:
   undistort_image at 3200 x 2400 and undistort_points on 100,000 pixels
   (`undistort`); the L1 and box-QP solvers at the 553-view city's
   relative-translation shape (`l1_qp`). Their gates are JAX's worst
-  readings from tests/d2_reference.py (but cascade_24's reprojection:
-  see CASCADE_GATE).
+  readings from tests/d2_reference.py;
+* the port's flagship CLI (`io_cli`): build_reconstruction.main() in
+  process on global_24's views and card features held in a database on
+  disk, held to global_24's gate, then the files it and
+  convert_reconstruction write (npz, Theia .bin through the C++ reader
+  and the Python parser, NVM, bundler, COLMAP, PLY) read back.
 
 Every phase prints one JSON line; any failure raises, and the script
 exits non-zero without printing a result. It imports neither JAX nor the
@@ -80,8 +84,10 @@ import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -1498,6 +1504,16 @@ def phase_frontend_verify(scene):
 # mean error of at most 0.784 px (0.7839 rounded up at the third decimal).
 INCR_VIEWS_MIN_SHARE = 1.0
 INCR_REPROJ_MAX_PX = 0.784
+# incremental_24's gate: JAX's ReconstructionBuilder(INCREMENTAL) on the
+# 24 views with Fisher-vector pairs (tests/incremental_reference.py
+# --views 24, seeds 0-4) reconstructs every view at 0.1148-0.1701 px: every
+# view, and JAX's largest mean reprojection error. The card held the
+# 8-view bound until its Fisher-vector GMM, which drew its initial means
+# on the card's generator and chose 4 wide-baseline pairs the CPU does not
+# (models at 0.168-0.181 px), drew them on the CPU as JAX draws them on
+# every platform (tests/frontend24_probe.py, ROADMAP queue 3).
+INCR24_JAX_REPROJ_PX = 0.1700814397850368
+INCR24_GATE = (1.0, INCR24_JAX_REPROJ_PX)
 # The card's reconstruction against the same one on the CPU from the card's
 # database (each device draws its own localization samples): the same views
 # estimated, and estimated tracks within this share of the card's.
@@ -1863,7 +1879,8 @@ def phase_incremental_24():
     torch.cuda.reset_peak_memory_stats()
     tfm.top2 = keep
     try:
-        run, _, _ = _builder_run(scene, opts, "incremental_24")
+        run, _, _ = _builder_run(scene, opts, "incremental_24",
+                                 gate=INCR24_GATE)
     finally:
         tfm.top2 = real
     chunk_check = {}
@@ -1874,8 +1891,8 @@ def phase_incremental_24():
         chunk_check[what] = dict(max_abs_err=err, idx_diff_at_near_ties=ties)
     del chunks
     res = dict(views=n, all_pairs=n * (n - 1) // 2, sift_s=sift_s,
-               gate=dict(views_min_share=INCR_VIEWS_MIN_SHARE,
-                         reproj_max_px=INCR_REPROJ_MAX_PX),
+               gate=dict(views_min_share=INCR24_GATE[0],
+                         reproj_max_px=INCR24_GATE[1]),
                top2_on_chunks=chunk_check,
                peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
                nvidia_smi=nvidia_smi(), **run)
@@ -1923,6 +1940,10 @@ GLOBAL_SMALL_POS_MAX = 0.3
 # verification lands on the planar twin, ROADMAP queue 3) and every
 # view at 0.1117-0.1146 px at the others: the gate is that of its models.
 GLOBAL24_GATE = (23 / 24, 0.130)
+# global_24's builder options: the defaults (GLOBAL), Fisher-vector pairs
+GLOBAL24_OPTIONS = ReconstructionBuilderOptions(
+    select_image_pairs_with_global_descriptors=True,
+    num_nearest_neighbors_for_global_descriptor_matching=8)
 HYBRID_GATE = (1.0, 0.115)
 # global_24's card run against the CPU from the card's database. The
 # translation refinement solves in float64 in both packages' stead
@@ -2146,9 +2167,7 @@ def phase_global_24(scene):
     neighbours): one run on the card (float32), its rotation averaging
     rerun on the CPU on the card's inputs, then the same build on the CPU
     from the card's database."""
-    opts = ReconstructionBuilderOptions(
-        select_image_pairs_with_global_descriptors=True,
-        num_nearest_neighbors_for_global_descriptor_matching=8)
+    opts = GLOBAL24_OPTIONS
     check(opts.reconstruction_estimator_type == "GLOBAL",
           "the builder's default estimator is not GLOBAL")
     torch.cuda.reset_peak_memory_stats()
@@ -2196,6 +2215,261 @@ def phase_global_24(scene):
                nvidia_smi=nvidia_smi(), **run)
     emit("global_24", **res)
     return run["top2_match"]
+
+
+# ------------------------------------------------------------ io and CLI
+
+# io_cli: the port's flagship CLI (theiasfm_tpu_torch.apps.
+# build_reconstruction) in-process on global_24's views and card
+# features, held in a DiskFeaturesAndMatchesDatabase (no matches) with
+# placeholder image files (the card's machine decodes no image: the
+# builder extracts nothing its database holds) and the priors in a
+# calibration file. With these flags options_from_args equals
+# global_24's ReconstructionBuilderOptions field by field
+# (tests/test_torch_apps.py), so the model is held to GLOBAL24_GATE.
+IO_CLI_FLAGS = ("--select_image_pairs_with_global_image_descriptor_matching",
+                "--num_nearest_neighbors_for_global_descriptor_matching",
+                "8", "--max_num_features_for_fisher_vector_training",
+                "100000", "--max_sampson_error_for_verified_match", "2.25",
+                "--global_position_estimator", "LEAST_UNSQUARED_DEVIATION",
+                "--intrinsics_to_optimize", "NONE")
+# values the text formats derive from a rotation (NVM's quaternion,
+# bundler's R and t) read back within this relative error; everything
+# else reads back exactly
+IO_ROTATION_REL = 1e-9
+
+
+def _io_close(a, b, rel, what):
+    a, b = np.asarray(a, float), np.asarray(b, float)
+    err = float(np.max(np.abs(a - b) / np.maximum(1.0, np.abs(b)),
+                       initial=0.0))
+    check(err <= rel, f"io_cli: {what} read back {err} apart (> {rel})")
+    return err
+
+
+def _io_same_model(got, want, what):
+    """`got` (read back from a lossless format) holds `want`'s views and
+    tracks in id order, their names, flags, cameras, points, colours and
+    observations bit for bit."""
+    gv, wv = sorted(got.views), sorted(want.views)
+    gt, wt = sorted(got.tracks), sorted(want.tracks)
+    check(len(gv) == len(wv) and len(gt) == len(wt),
+          f"io_cli: {what} read {len(gv)} views and {len(gt)} tracks of "
+          f"{len(wv)} and {len(wt)}")
+    tmap = dict(zip(wt, gt))
+    for a, b in zip(gv, wv):
+        va, vb = got.views[a], want.views[b]
+        check(va.name == vb.name and va.is_estimated == vb.is_estimated and
+              int(va.camera.model_type) == int(vb.camera.model_type) and
+              np.array_equal(va.camera.extrinsics, vb.camera.extrinsics) and
+              np.array_equal(va.camera.intrinsics, vb.camera.intrinsics) and
+              sorted(va.features) == sorted(tmap[t] for t in vb.features if
+                                            t in tmap) and
+              all(np.array_equal(va.features[tmap[t]], f)
+                  for t, f in vb.features.items() if t in tmap),
+              f"io_cli: {what}: view {vb.name} differs")
+    for a, b in zip(gt, wt):
+        ta, tb = got.tracks[a], want.tracks[b]
+        check(ta.is_estimated == tb.is_estimated and
+              np.array_equal(ta.point, tb.point) and
+              np.array_equal(ta.color, tb.color),
+              f"io_cli: {what}: track {b} differs")
+
+
+def _io_text_read_back(model, read, what, all_views):
+    """A model read back from NVM (estimated views) or bundler (every
+    view): names, focal lengths, positions and orientations (the
+    rotation-derived values within IO_ROTATION_REL), and the estimated
+    tracks' points, colours and centred observations exactly. Returns
+    the largest rotation-derived error."""
+    vids = [v for v in sorted(model.views)
+            if all_views or model.views[v].is_estimated]
+    tids = [t for t in sorted(model.tracks) if model.tracks[t].is_estimated]
+    rv, rt = sorted(read.views), sorted(read.tracks)
+    check(len(rv) == len(vids) and len(rt) == len(tids),
+          f"io_cli: {what} read {len(rv)} views and {len(rt)} tracks of "
+          f"{len(vids)} and {len(tids)}")
+    vmap, err = dict(zip(vids, rv)), 0.0
+    for v in vids:
+        cam, rc = model.views[v].camera, read.views[vmap[v]].camera
+        check(read.views[vmap[v]].name == model.views[v].name,
+              f"io_cli: {what}: names differ")
+        if not model.views[v].is_estimated:
+            continue
+        check(rc.intrinsics[0] == cam.intrinsics[0],
+              f"io_cli: {what}: focal length of {model.views[v].name}")
+        err = max(err, _io_close(rc.extrinsics[3:6], cam.extrinsics[3:6],
+                                 IO_ROTATION_REL, f"{what} orientation"))
+        if all_views:   # bundler: the position through R and t
+            err = max(err, _io_close(rc.extrinsics[:3], cam.extrinsics[:3],
+                                     IO_ROTATION_REL, f"{what} position"))
+            check(np.array_equal(rc.intrinsics[5:7], cam.intrinsics[5:7]),
+                  f"io_cli: {what}: radial distortion")
+        else:
+            check(np.array_equal(rc.extrinsics[:3], cam.extrinsics[:3]),
+                  f"io_cli: {what}: position")
+    for t, r in zip(tids, rt):
+        tr, rr = model.tracks[t], read.tracks[r]
+        check(np.array_equal(rr.point[:3], tr.xyz()) and
+              np.array_equal(rr.color, tr.color),
+              f"io_cli: {what}: track {t} point or colour")
+        for v in tr.views:
+            if v not in vmap or not model.views[v].is_estimated:
+                continue
+            pp = model.views[v].camera.intrinsics[3:5]
+            feat = model.views[v].features[t]
+            check(np.array_equal(read.views[vmap[v]].features[r],
+                                 np.asarray(feat) - pp),
+                  f"io_cli: {what}: observation of track {t}")
+    return err
+
+
+def _io_timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def phase_io_cli(scene, device="cuda", gate=GLOBAL24_GATE):
+    """The port's CLI on the card, then its files: build_reconstruction.
+    main() on global_24's views (extract-and-match skips extraction and
+    matches on the card with Fisher-vector pairs; GLOBAL reconstructs),
+    the npz it writes read back bit for bit, convert_reconstruction to a
+    Theia .bin read by the C++ reader and the Python parser alike, and
+    NVM, bundler, COLMAP and PLY written, NVM and bundler read back.
+    (`device` and `gate` other than the card's only to rehearse it on
+    the CPU: tests/test_torch_apps.py.)"""
+    from theiasfm_tpu_torch import io as tio
+    from theiasfm_tpu_torch.apps import build_reconstruction as cli
+    from theiasfm_tpu_torch.apps import convert_reconstruction as conv
+    from theiasfm_tpu_torch.matching import (DiskFeaturesAndMatchesDatabase,
+                                             KeypointsAndDescriptors)
+    from theiasfm_tpu_torch.sfm.reconstruction import CameraIntrinsicsPrior
+
+    rec = {}
+    Real = cli.ReconstructionBuilder
+
+    class Timed(Real):
+        """The CLI's builder, timed stage by stage, its models kept."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            rec["builder"] = self
+
+        def extract_and_match_features(self):
+            out, rec["extract_and_match_s"] = sync_time(
+                super().extract_and_match_features)
+            rec["match_counts"] = dispatch_counts()
+            return out
+
+        def build_reconstruction(self):
+            rec["models"], rec["reconstruct_s"] = sync_time(
+                super().build_reconstruction)
+            return rec["models"]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        db = DiskFeaturesAndMatchesDatabase(str(tmp / "db"))
+        (tmp / "images").mkdir()
+        for n in scene["names"]:
+            k, d = scene["arrays"][n]
+            db.put_features(n, KeypointsAndDescriptors(
+                image_name=n, keypoints=np.asarray(k),
+                descriptors=np.asarray(d)))
+            (tmp / "images" / n).touch()
+        tio.write_calibration(
+            {n: CameraIntrinsicsPrior(**p) for n, p in
+             scene["priors"].items()}, str(tmp / "calibration.json"))
+        argv = ["--images", str(tmp / "images" / "*"),
+                "--output_reconstruction", str(tmp / "out" / "model"),
+                "--matching_working_directory", str(tmp / "db"),
+                "--calibration_file", str(tmp / "calibration.json"),
+                "--device", device, *IO_CLI_FLAGS]
+        check(cli.options_from_args(cli.build_parser().parse_args(argv)) ==
+              GLOBAL24_OPTIONS, "io_cli: the CLI's options are not "
+              "global_24's")
+        cli.ReconstructionBuilder = Timed
+        reset_dispatch_counts()
+        try:
+            rc, cli_s = sync_time(lambda: cli.main(argv))
+        finally:
+            cli.ReconstructionBuilder = Real
+        check(rc == 0, f"io_cli: the CLI returned {rc}")
+        b, models = rec["builder"], rec["models"]
+        n_pairs = len(b._matcher._pairs)
+        chunks = -(-n_pairs // b.options.matching.pair_batch_size)
+        n_top2 = rec["match_counts"].get("top2_match", 0)
+        check(n_top2 == 2 * chunks, f"io_cli: top2_match launched "
+              f"{rec['match_counts']} for {chunks} chunks, expected 2 per "
+              "chunk")
+        check(len(models) >= 1, "io_cli: no model")
+        report = model_report(models[0], scene["cams"])
+        check(builder_gate(report, len(scene["names"]), *gate),
+              f"io_cli: gate (>= {gate[0]:.3f} of the views, mean "
+              f"reprojection <= {gate[1]} px) failed: {report}")
+        model, out = models[0], tmp / "out"
+        npz = out / "model-0.npz"
+        check(npz.exists() and len(list(out.glob("model-*.npz"))) ==
+              len(models), "io_cli: the CLI wrote no npz per model")
+
+        ms = {}
+        _, ms["npz_write"] = _io_timed(lambda: tio.write_reconstruction(
+            model, str(out / "again.npz")))
+        back, ms["npz_read"] = _io_timed(
+            lambda: tio.read_reconstruction(str(npz)))
+        _io_same_model(back, model, "the npz")
+        bin_path = str(out / "model.bin")
+        check(conv.main(["--input", str(npz), "--output", bin_path,
+                         "--output_format", "theia"]) == 0,
+              "io_cli: convert_reconstruction failed")
+        _, ms["theia_write"] = _io_timed(
+            lambda: tio.write_theia_reconstruction(str(out / "again.bin"),
+                                                   back))
+        check((out / "again.bin").read_bytes() == Path(bin_path)
+              .read_bytes(), "io_cli: two writes of the .bin differ")
+        tio.read_theia_reconstruction(bin_path)   # builds the reader
+        native, ms["theia_read_native"] = _io_timed(
+            lambda: tio.read_theia_reconstruction(bin_path))
+        python, ms["theia_read_python"] = _io_timed(
+            lambda: tio.read_theia_reconstruction(bin_path,
+                                                  prefer_native=False))
+        _io_same_model(native, python, "the .bin (C++ against Python)")
+        _io_same_model(native, back, "the .bin")
+        _, ms["nvm_write"] = _io_timed(
+            lambda: tio.write_nvm(back, str(out / "model.nvm")))
+        nvm, ms["nvm_read"] = _io_timed(
+            lambda: tio.read_nvm(str(out / "model.nvm")))
+        _, ms["bundler_write"] = _io_timed(lambda: tio.write_bundler(
+            back, str(out / "list.txt"), str(out / "bundle.out")))
+        bundler, ms["bundler_read"] = _io_timed(lambda: tio.read_bundler(
+            str(out / "list.txt"), str(out / "bundle.out")))
+        _, ms["colmap_write"] = _io_timed(
+            lambda: tio.write_colmap(back, str(out / "colmap")))
+        _, ms["ply_write"] = _io_timed(
+            lambda: tio.write_ply(back, str(out / "model.ply")))
+        rot_err = dict(nvm=_io_text_read_back(back, nvm, "NVM", False),
+                       bundler=_io_text_read_back(back, bundler, "bundler",
+                                                  True))
+        ply_lines = len((out / "model.ply").read_text().splitlines())
+        n_est = len(back.estimated_tracks()) + len(back.estimated_views())
+        check(ply_lines == n_est + 10, f"io_cli: the PLY has {ply_lines} "
+              f"lines for {n_est} vertices")
+        check(len((out / "colmap" / "images.txt").read_text()
+                  .splitlines()) == 1 + 2 * len(back.estimated_views()),
+              "io_cli: COLMAP's images.txt")
+        sizes = {p.name: p.stat().st_size for p in sorted(out.iterdir())
+                 if p.is_file()}
+    res = dict(views=len(scene["names"]), argv_flags=list(IO_CLI_FLAGS),
+               gate=dict(views_min_share=gate[0], reproj_max_px=gate[1],
+                         rotation_rel=IO_ROTATION_REL),
+               cli_s=cli_s, extract_and_match_s=rec["extract_and_match_s"],
+               reconstruct_s=rec["reconstruct_s"], pairs_matched=n_pairs,
+               chunks=chunks, top2_match=n_top2,
+               match_launches=rec["match_counts"], models=len(models),
+               io_ms=ms, rotation_derived_max_rel=rot_err, file_bytes=sizes,
+               nvidia_smi=nvidia_smi(), **report)
+    emit("io_cli", **res)
+    return n_top2
 
 
 def phase_hybrid(scene):
@@ -2827,14 +3101,10 @@ AKAZE_INCR_GATE = (1.0, 0.7884)
 # card's), and the smallest share of the brute force's symmetric
 # putative matches the cascade hasher also keeps (0.99980; the port's
 # hasher draws another basis from the same seed: 0.99979-0.99984 on the
-# CPU). The card's model is held to every view and to the 24-view
-# builder phases' bound, INCR_REPROJ_MAX_PX: the card's front end builds
-# databases whose models read 0.128-0.149 px at seeds 0-4 where JAX's
-# read 0.114-0.131 (tests/d2_card_probe.py; the brute force alike),
-# while both packages' back ends agree on one database (ROADMAP queue
-# 3).
+# CPU). The card's model is held to every view and to JAX's largest mean
+# reprojection error, as incremental_24's (INCR24_GATE).
 CASCADE_JAX_REPROJ_PX = 0.13058880682179247
-CASCADE_GATE = (1.0, INCR_REPROJ_MAX_PX)
+CASCADE_GATE = (1.0, CASCADE_JAX_REPROJ_PX)
 CASCADE_SHARE_MIN = 0.9997983339279897
 # card and CPU cascade hashing (the same seed, the same basis): at most
 # this share of each pair's putative matches differs
@@ -3318,6 +3588,7 @@ def main():
     city = _city(*CITY)
     phase_global_1dsfm(city)
     n_global24 = phase_global_24(scene24)
+    n_io_cli = phase_io_cli(scene24)
     phase_hybrid(scene)
     phase_uncalibrated(scene)
     phase_transforms(city)
@@ -3361,6 +3632,7 @@ def main():
              dict(incremental_launches=n_incr,
                   incremental_24_launches=n_incr24,
                   global_24_launches=n_global24,
+                  io_cli_launches=n_io_cli,
                   akaze_incremental_launches=n_akaze,
                   cascade_24_launches=0,
                   incremental_24_max_abs_err=max(

@@ -5,6 +5,7 @@ Tolerances: GMM parameters to 2e-4 relative, encodings to 2e-5, the
 selected pairs equal."""
 import jax
 import numpy as np
+import torch
 
 from theiasfm_tpu.matching import fisher_vector as jfv
 from theiasfm_tpu_torch.matching import fisher_vector as tfv
@@ -67,3 +68,21 @@ def test_generator_draws_distinct_initial_means():
     for x, y in zip(a.gmm, b.gmm):
         np.testing.assert_array_equal(x.numpy(), y.numpy())
     assert np.isfinite(a.extract_global_descriptor(X[:50])).all()
+
+
+def test_initial_means_drawn_on_the_cpu_for_every_device(monkeypatch):
+    """The GMM's initial rows come from a CPU generator whatever the
+    extractor's device, as JAX's draw is the same on every platform: a
+    CUDA generator streams other rows, and the card then chose other
+    image pairs than the CPU from the same features (24 views: 4 pairs
+    only on the card, models at 0.17-0.18 px against 0.11-0.13;
+    tests/frontend24_probe.py)."""
+    monkeypatch.setattr(tfv, "resolve_device", torch.device)
+    opts = tfv.FisherVectorOptions(num_gmm_clusters=16)
+    card = tfv.FisherVectorExtractor(opts, seed=5, device="cuda")
+    cpu = tfv.FisherVectorExtractor(opts, seed=5, device="cpu")
+    assert card.device.type == "cuda"
+    assert card.generator.device.type == "cpu"
+    a, b = card.initial_indices(36_000), cpu.initial_indices(36_000)
+    assert a.shape == (16,) and len(set(a.tolist())) == 16
+    assert torch.equal(a, b)

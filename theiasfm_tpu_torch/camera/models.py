@@ -31,6 +31,7 @@ import torch
 
 from ..math import rotation as rot
 from ..utils import linalg
+from ..utils.device import resolve_device
 
 
 class CameraModelType(enum.IntEnum):
@@ -53,6 +54,18 @@ NUM_PARAMS = {
 MAX_INTRINSICS = 10
 
 FOCAL, ASPECT, SKEW, PP_X, PP_Y = 0, 1, 2, 3, 4
+
+
+def default_intrinsics(focal=1.0, ppx=0.0, ppy=0.0, aspect=1.0,
+                       dtype=torch.float64, device="cuda"):
+    """A padded (MAX_INTRINSICS,) intrinsics vector: focal, aspect and
+    principal point set, skew and distortion zero. On the card unless
+    device="cpu" (a CUDA device without a card raises)."""
+    p = torch.zeros(MAX_INTRINSICS, dtype=dtype,
+                    device=resolve_device(device))
+    p[FOCAL], p[ASPECT] = focal, aspect
+    p[PP_X], p[PP_Y] = ppx, ppy
+    return p
 
 
 def _where(cond, a, b):
@@ -235,6 +248,13 @@ def project(model_type, extrinsics, intr, point):
     jacobians drive bundle adjustment."""
     return pixel_from_camera_point(model_type, intr,
                                    world_to_camera(extrinsics, point))
+
+
+def project_batch(model_type, extrinsics, intr, points):
+    """Batched convenience (JAX vmaps `project`; the port's broadcasts):
+    extrinsics (N, 6), intr (N, P), points (N, 3) -> pixels (N, 2),
+    depths (N,)."""
+    return project(model_type, extrinsics, intr, points)
 
 
 def pixel_to_normalized_ray(model_type, intr, pixel):

@@ -18,7 +18,9 @@ ViewGraph; `two_view_info_from_state` copies one edge's payload.
 Features: `features_db_from_arrays` takes the keypoints and descriptors
 as the JAX package's database holds them (numpy arrays per image name)
 and the intrinsics priors as plain field dicts, and builds the port's
-in-memory features-and-matches database.
+in-memory features-and-matches database. `intrinsics_prior_from_state`
+builds one prior from such a dict (`dataclasses.asdict` of a JAX
+CameraIntrinsicsPrior, e.g. of those `read_calibration` returns).
 
 Cascade hashing: `cascade_hasher_from_state` takes the JAX
 CascadeHasher's projection basis (`np.asarray(hasher.proj)`, (D, 128))
@@ -79,12 +81,22 @@ def features_db_from_arrays(features: dict, priors: dict = None
             image_name=name, keypoints=np.array(kps, copy=True),
             descriptors=np.array(desc, copy=True)))
     for name, fields in (priors or {}).items():
-        fields = dict(fields)
-        if "camera_intrinsics_model_type" in fields:
-            fields["camera_intrinsics_model_type"] = CameraModelType(
-                int(fields["camera_intrinsics_model_type"]))
-        db.put_intrinsics_prior(name, CameraIntrinsicsPrior(**fields))
+        db.put_intrinsics_prior(name, intrinsics_prior_from_state(fields))
     return db
+
+
+def intrinsics_prior_from_state(fields: dict) -> CameraIntrinsicsPrior:
+    """{CameraIntrinsicsPrior field: value} (e.g. `dataclasses.asdict` of
+    a JAX prior, as `read_calibration` returns them) -> the port's prior
+    (the model type as the port's enum, arrays copied)."""
+    fields = dict(fields)
+    if "camera_intrinsics_model_type" in fields:
+        fields["camera_intrinsics_model_type"] = CameraModelType(
+            int(fields["camera_intrinsics_model_type"]))
+    for k in ("position", "orientation"):
+        if fields.get(k) is not None:
+            fields[k] = np.array(fields[k], dtype=np.float64, copy=True)
+    return CameraIntrinsicsPrior(**fields)
 
 
 def reconstruction_from_state(state: dict) -> Reconstruction:
@@ -105,13 +117,9 @@ def reconstruction_from_state(state: dict) -> Reconstruction:
         cam["model_type"] = model(cam["model_type"])
         for k in ("extrinsics", "intrinsics"):
             cam[k] = np.array(cam[k], dtype=np.float64, copy=True)
-        prior = dict(v.get("prior") or {})
-        if "camera_intrinsics_model_type" in prior:
-            prior["camera_intrinsics_model_type"] = model(
-                prior["camera_intrinsics_model_type"])
         rec.views[vid] = View(
             name=v["name"], camera=Camera(**cam),
-            prior=CameraIntrinsicsPrior(**prior),
+            prior=intrinsics_prior_from_state(v.get("prior") or {}),
             is_estimated=bool(v["is_estimated"]),
             features={t: np.array(f, dtype=float, copy=True)
                       for t, f in v["features"].items()})

@@ -12,8 +12,14 @@ contractions; the all-pairs FV similarity is one product on the host.
 Both run in float32 on the extractor's `device` (the card unless the
 caller passes "cpu"). Where the JAX module draws the GMM's initial
 means with jax.random.choice from PRNGKey(seed), this one draws them
-from a torch.Generator seeded with `seed`, or takes the initial
-indices from the caller (`train(..., init_indices=...)`).
+from a CPU torch.Generator seeded with `seed`, or takes the initial
+indices from the caller (`train(..., init_indices=...)`). The draw is on
+the CPU whatever the device, as JAX's draw is the same on every
+platform: a CUDA generator streams other rows than a CPU one, and the
+card then chose other image pairs than the CPU from the same features
+(24 views: 174 pairs against 171, 4 wide-baseline pairs only on the
+card, whose models read 0.17-0.18 px against 0.11-0.13;
+tests/frontend24_probe.py).
 """
 from __future__ import annotations
 
@@ -90,14 +96,20 @@ class FisherVectorExtractor:
                  FisherVectorOptions(), seed: int = 0, device="cuda"):
         self.options = options
         self.device = resolve_device(device)
-        self.generator = torch.Generator(self.device).manual_seed(seed)
+        self.generator = torch.Generator().manual_seed(seed)
         self.gmm = None
+
+    def initial_indices(self, n: int) -> torch.Tensor:
+        """The GMM's initial rows: K distinct rows of n, drawn without
+        replacement from the CPU generator (the same on every device)."""
+        return torch.randperm(n, generator=self.generator)[
+            :self.options.num_gmm_clusters]
 
     @full_f32()
     def train(self, descriptors: np.ndarray, init_indices=None):
         """Fit the GMM. init_indices: optional (K,) rows of the
         (subsampled) training set for the initial means; drawn without
-        replacement from the generator by default."""
+        replacement from the CPU generator by default."""
         X = np.asarray(descriptors, np.float32)
         cap = self.options.max_num_features_for_training
         if X.shape[0] > cap:
@@ -105,10 +117,8 @@ class FisherVectorExtractor:
                                                   replace=False)
             X = X[sel]
         X = torch.as_tensor(X, device=self.device)
-        K = self.options.num_gmm_clusters
         if init_indices is None:
-            init = torch.randperm(X.shape[0], generator=self.generator,
-                                  device=self.device)[:K]
+            init = self.initial_indices(X.shape[0]).to(self.device)
         else:
             init = torch.as_tensor(np.asarray(init_indices),
                                    device=self.device).long()

@@ -23,5 +23,9 @@ def dispatch_counts() -> Dict[str, int]:
     return dict(_counts)
 
 
+def total_dispatches() -> int:
+    return sum(_counts.values())
+
+
 def reset_dispatch_counts() -> None:
     _counts.clear()
