@@ -35,6 +35,10 @@ from ..sfm.reconstruction_builder import (ReconstructionBuilder,
 from ..utils.device import resolve_device
 
 
+# --feature_density: SIFT's keypoint budget per octave
+FEATURE_DENSITY = {"SPARSE": 512, "NORMAL": 1024, "DENSE": 2048}
+
+
 def _loss_name(s: str) -> str:
     return {"TRIVIAL": "trivial", "HUBER": "huber",
             "SOFTLONE": "softl1", "CAUCHY": "cauchy",
@@ -164,9 +168,8 @@ def build_parser():
 def options_from_args(args) -> ReconstructionBuilderOptions:
     """The ReconstructionBuilderOptions the flags ask for (the JAX CLI's
     mapping)."""
-    density = {"SPARSE": 512, "NORMAL": 1024, "DENSE": 2048}
     sift = SiftOptions(
-        max_features_per_octave=density[args.feature_density])
+        max_features_per_octave=FEATURE_DENSITY[args.feature_density])
     intrin = {"NONE": (False,) * 10,
               "FOCAL_LENGTH": (True,) + (False,) * 9,
               "ALL": (True,) * 10}[args.intrinsics_to_optimize]

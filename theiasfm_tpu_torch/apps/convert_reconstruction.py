@@ -24,6 +24,19 @@ from ..io import (read_bundler, read_nvm, read_reconstruction,
                   write_theia_reconstruction)
 
 
+def load_reconstruction(path: str, lists: str = ""):
+    """A reconstruction from any format the converters read: .npz
+    (native), .nvm, bundler when `lists` names its lists file, else a
+    Theia .bin. The converter CLIs all load through this function."""
+    if path.endswith(".npz"):
+        return read_reconstruction(path)
+    if path.endswith(".nvm"):
+        return read_nvm(path)
+    if lists:
+        return read_bundler(lists, path)
+    return read_theia_reconstruction(path)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--input", required=True)
@@ -35,14 +48,7 @@ def main(argv=None):
                             "theia"])
     args = p.parse_args(argv)
 
-    if args.input.endswith(".npz"):
-        recon = read_reconstruction(args.input)
-    elif args.input.endswith(".nvm"):
-        recon = read_nvm(args.input)
-    elif args.input_lists:
-        recon = read_bundler(args.input_lists, args.input)
-    else:
-        recon = read_theia_reconstruction(args.input)
+    recon = load_reconstruction(args.input, args.input_lists)
 
     print(f"loaded: {recon.num_views()} views, "
           f"{recon.num_tracks()} tracks")

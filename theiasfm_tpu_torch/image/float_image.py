@@ -1,5 +1,6 @@
-"""Image loading / float image wrapper (copy of
-theiasfm_tpu/image/float_image.py).
+"""Image loading / float image wrapper (port of
+theiasfm_tpu/image/float_image.py; `from_file` also converts to a PIL
+mode and tests the decoded dtype, the one decoder of the CLIs).
 
 ref: src/theia/image/image.h:51-110 (FloatImage over OpenImageIO).
 Host-side decode via PIL, imported inside the functions so that
@@ -18,11 +19,20 @@ class FloatImage:
         self.pixels = np.asarray(pixels, np.float32)
 
     @classmethod
-    def from_file(cls, path: str) -> "FloatImage":
+    def from_file(cls, path: str, mode: str | None = None) -> "FloatImage":
+        """Decode `path`, converted to the PIL `mode` first when one is
+        given ("RGB" for colour pixels whatever the file holds). 8-bit
+        pixels scale to [0, 1]: the test is on the decoded dtype, as
+        the JAX module's `arr.dtype == np.uint8` meant (it tests the
+        float32 copy, so an 8-bit image of 0s and 1s stays unscaled
+        there)."""
         from PIL import Image
         img = Image.open(path)
-        arr = np.asarray(img, np.float32)
-        if arr.dtype == np.uint8 or arr.max() > 1.5:
+        if mode is not None:
+            img = img.convert(mode)
+        raw = np.asarray(img)
+        arr = raw.astype(np.float32)
+        if raw.dtype == np.uint8 or arr.max() > 1.5:
             arr = arr / 255.0
         return cls(arr)
 
