@@ -40,6 +40,13 @@ main paths:
   the view-graph filters, LUD positions, triangulation, BA), cold, warm
   and profiled, held to the gate tests/global_reference.py sets from the
   JAX package on the CPU, then at 200 views;
+* the sharded solvers of slice E (`parallel`): the point-sharded BA
+  (pcg_fast_pt through the Schur kernels, and through the plain matvec)
+  and the observation-sharded BA at the Notre-Dame scale, the
+  edge-sharded rotation averaging and LUD positions on the 553-view
+  city's graph, at world size 1 over NCCL in this process and on 4
+  spawned processes over gloo on the one card, each held to the
+  single-device solves; the Schur kernels' launches on every rank;
 * from pixels with the builder's default options (GLOBAL) on the 24
   views (`global_24`), held to JAX's reading, its rotation averaging to
   the CPU's on the same inputs, and its model to the CPU's build from
@@ -90,19 +97,23 @@ import dataclasses
 import hashlib
 import io
 import json
+import multiprocessing
 import pickle
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from theiasfm_tpu_torch import _kernels
 from theiasfm_tpu_torch.bench_problem import build_city_scene, make_problem
@@ -127,6 +138,15 @@ from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as gvm
+from theiasfm_tpu_torch.parallel import (make_mesh,
+                                         estimate_positions_sharded,
+                                         point_sharded_bundle_adjust,
+                                         rotation_averaging_sharded,
+                                         run_ranks, sharded_bundle_adjust)
+from theiasfm_tpu_torch.sfm.global_pose import (PositionEstimatorOptions,
+                                                estimate_positions_lud,
+                                                orientations_from_mst,
+                                                robust_rotation_averaging)
 from theiasfm_tpu_torch.sfm.pipeline import global_pipeline as tgp
 from theiasfm_tpu_torch.sfm.pipeline import incremental as tinc
 from theiasfm_tpu_torch.sfm.pipeline import twoview as tvm
@@ -2191,6 +2211,324 @@ def phase_global_1dsfm(city):
                nvidia_smi=nvidia_smi())
     emit("global_1dsfm", **res)
     return res
+
+
+# ------------------------------------------------------------ parallel
+
+# the sharded solvers (theiasfm_tpu_torch/parallel): NCCL at world size
+# 1 in this process, then PARALLEL_RANKS processes on the one card over
+# gloo (NCCL refuses two ranks on one card), each run held to the
+# single-device solve on the card
+PARALLEL_RANKS = 4
+PARALLEL_TIMEOUT_S = 600.0
+# final costs against the single-device solve with the same options, and
+# the kernel route against the plain one (ROADMAP.md's rule for
+# cg_eta > 0 and a bf16 matvec)
+PARALLEL_COST_REL = 1e-3
+PARALLEL_PLAIN = dataclasses.replace(FAST_PT, pallas_matvec=False)
+# rotations: the largest angle-axis difference (rad) from the
+# single-device rotation averaging
+PARALLEL_ROT_RAD = 1e-4
+# positions: the largest difference over the single-device positions'
+# radius about their centroid, both solves in float64. In float32 the
+# chordal GN's accept-or-reject tests on two costs summed in another
+# order part the trajectories: at 553 views the 4-rank and single solves
+# end 6.6e-4 of the radius apart on a CPU, 1.8e-8 in float64, and on an
+# H100 (700 W) the world-size-1 solve, whose sums differ from the single
+# device's only by index_add_'s atomics, 6.4e-4. So float32 runs at
+# world size 1 only, its reading printed, not gated (ROADMAP.md: exact
+# equivalence in float64)
+PARALLEL_POS_REL = 1e-4
+# the chordal GN's steps in this phase (GlobalOptions runs 300): over
+# gloo, four processes on one H100 (700 W) took 133.43 s for the 300
+# steps' some 13,500 all-reduces a rank
+PARALLEL_POS_OPTS = PositionEstimatorOptions(max_iterations=30)
+
+
+def _nd_problem(device):
+    return make_problem(550, 140_000, 4, torch.float32, device,
+                        perturb_seed=7)
+
+
+def _parallel_graph(city):
+    """The 553-view city's view graph as GlobalOptions() hands it to its
+    rotation averaging: edges under min_num_two_view_inliers dropped and
+    the rotation-cycle filter run (on the CPU in float64, so that every
+    run gets the same graph); view indices, edge weights over their
+    largest, the spanning-tree start of the rotations and each view's
+    index among the scene's true cameras."""
+    recon, graph = pickle.loads(city["blob"])
+    opts = tgp.GlobalOptions()
+    for (v1, v2), info in list(graph.edges().items()):
+        if info.num_verified_matches < opts.min_num_two_view_inliers:
+            graph.remove_edge(v1, v2)
+    graph.remove_disconnected_views()
+    tgp.filter_view_graph_cycles_by_rotation(
+        graph, opts.cycle_max_loop_error_degrees, dtype=torch.float64,
+        device="cpu")
+    graph.remove_disconnected_views()
+    edges, rel_rot, rel_pos, w = tgp._graph_arrays(graph)
+    vids = graph.view_ids()
+    idx = {v: i for i, v in enumerate(vids)}
+    e_idx = np.asarray([[idx[a], idx[b]] for a, b in edges])
+    return dict(views=len(idx), edges=e_idx, rel_rot=rel_rot,
+                rel_pos=rel_pos, weights=w / w.max(),
+                init=orientations_from_mst(len(idx), e_idx, rel_rot, w),
+                truth=[int(recon.views[v].name[1:5]) for v in vids])
+
+
+def _rotation_errors_deg(aa, graph, extrs):
+    """Median and largest angle (deg) between the orientations `aa` and
+    the scene's true ones after the best global rotation (the gauge)."""
+    Rt = np.stack([_rodrigues(extrs[i, 3:]) for i in graph["truth"]])
+    Re = _rodrigues_batch(aa)
+    U, _, Vt = np.linalg.svd(np.einsum("vji,vjk->ik", Rt, Re))
+    G = U @ np.diag([1.0, 1.0, np.linalg.det(U @ Vt)]) @ Vt
+    c = (np.einsum("vij,vij->v", Rt @ G, Re) - 1) / 2
+    e = np.degrees(np.arccos(np.clip(c, -1, 1)))
+    return dict(median_deg=float(np.median(e)), max_deg=float(e.max()))
+
+
+def _timed(fn):
+    """fn() on the card: its result, wall seconds (ends in a
+    synchronize) and the launch counts of exactly this call."""
+    reset_dispatch_counts()
+    out, sec = sync_time(fn)
+    return out, sec, dispatch_counts()
+
+
+def _ba_reading(s, sec, counts):
+    return dict(initial_cost=float(s.initial_cost),
+                final_cost=float(s.final_cost), iterations=s.num_iterations,
+                wall_s=sec, lm_iters_per_s=s.num_iterations / sec,
+                launches={k: counts.get(k, 0) for k in
+                          ("schur_matvec", "schur_pass1", "schur_pass2")})
+
+
+def _graph_solves(graph, rotations, positions, float32_positions=True):
+    """The view-graph solves of a run: the rotations, and the positions
+    (PARALLEL_POS_OPTS) from the single-device rotations in float64 and,
+    with float32_positions, float32; arrays and seconds."""
+    out = {}
+    out["rot"], out["rot_s"], _ = _timed(lambda: rotations(
+        graph["init"], graph["edges"], graph["rel_rot"]))
+    runs = [("pos64", torch.float64)]
+    if float32_positions:
+        runs.insert(0, ("pos", torch.float32))
+    for name, dt in runs:
+        out[name], out[f"{name}_s"], _ = _timed(lambda: positions(
+            graph["orientations"], graph["edges"], graph["rel_pos"],
+            edge_weights=graph["weights"], opts=PARALLEL_POS_OPTS,
+            dtype=dt))
+    return out
+
+
+def _parallel_solves(mesh, mesh_e, graph):
+    """This rank's sharded solves (every rank calls with the same
+    inputs), after one untimed LM iteration through the kernels (the
+    kernels' library, cuBLAS, the allocator): the point-sharded BA
+    through the kernels and through the plain matvec, the
+    observation-sharded BA, the edge-sharded rotation averaging and LUD
+    positions; host readings."""
+    started_at = time.time()
+    t0 = time.perf_counter()
+    prob = _nd_problem(mesh.device)
+    point_sharded_bundle_adjust(
+        prob, dataclasses.replace(FAST_PT, max_iterations=1), mesh)
+    torch.cuda.synchronize()
+    out = {"rank": mesh.rank, "size": mesh.size, "started_at": started_at,
+           "setup_s": time.perf_counter() - t0}
+    for name, fn, opts in (
+            ("point_kernels", point_sharded_bundle_adjust, FAST_PT),
+            ("point_plain", point_sharded_bundle_adjust, PARALLEL_PLAIN),
+            ("obs", sharded_bundle_adjust, FAST_PT)):
+        (res, s), sec, counts = _timed(lambda: fn(prob, opts, mesh))
+        check(all(bool(torch.isfinite(x).all()) for x in
+                  (res.extrinsics, res.intrinsics, res.points)),
+              f"parallel {name}: non-finite parameters")
+        out[name] = _ba_reading(s, sec, counts)
+    out.update(_graph_solves(
+        graph, lambda *a, **k: rotation_averaging_sharded(
+            *a[:3], mesh_e, **k),
+        lambda *a, **k: estimate_positions_sharded(*a[:3], mesh_e, **k),
+        float32_positions=mesh.size == 1))
+    out["solves_s"] = time.perf_counter() - t0
+    return out
+
+
+def parallel_rank(ranks, graph, go):
+    """One of the PARALLEL_RANKS processes (run_ranks pickles this
+    function by name): it starts and builds its meshes while the script
+    runs the single-device and world-size-1 solves, then waits for `go`
+    (a multiprocessing Event), so that no timed run shares the card."""
+    entered_at = time.time()
+    mesh, mesh_e = ranks.mesh("obs"), ranks.mesh("edges")
+    meshes_s = time.time() - entered_at
+    check(go.wait(PARALLEL_TIMEOUT_S), "parallel: no go from the script")
+    out = _parallel_solves(mesh, mesh_e, graph)
+    out.update(entered_at=entered_at, meshes_s=meshes_s)
+    return out
+
+
+def _parallel_gates(run, ref, what, extrs, graph):
+    """One rank's readings against the single-device solves."""
+    kern, plain, obs = (run[k] for k in ("point_kernels", "point_plain",
+                                         "obs"))
+    for name, got, want in (("point_kernels", kern, ref["kernels"]),
+                            ("point_plain", plain, ref["plain"]),
+                            ("obs", obs, ref["plain"])):
+        rel = abs(got["final_cost"] - want["final_cost"]) / abs(
+            want["final_cost"])
+        got["rel_to_single"] = rel
+        check(rel <= PARALLEL_COST_REL,
+              f"{what} {name}: final cost {got['final_cost']} against the "
+              f"single device's {want['final_cost']} (rel {rel})")
+    rel = abs(kern["final_cost"] - plain["final_cost"]) / abs(
+        plain["final_cost"])
+    kern["rel_to_plain"] = rel
+    check(rel <= PARALLEL_COST_REL, f"{what}: kernel and plain sharded "
+          f"solves {kern['final_cost']} vs {plain['final_cost']}")
+    n = kern["launches"]
+    check(n["schur_matvec"] > 0 and n["schur_pass1"] == n["schur_matvec"]
+          and n["schur_pass2"] == n["schur_matvec"],
+          f"{what}: the kernels did not carry every Schur product: {n}")
+    for name in ("point_plain", "obs"):
+        check(run[name]["launches"]["schur_pass1"] == 0,
+              f"{what} {name}: the plain route launched kernels")
+    rot_err = float(np.max(np.abs(run["rot"] - ref["rot"])))
+    p_ref = ref["pos64"]
+    radius = float(np.max(np.linalg.norm(p_ref - p_ref.mean(0), axis=1)))
+    pos_err, pos32_err = (float(np.max(np.linalg.norm(
+        run[k] - ref[k], axis=1))) / radius if k in run else None
+        for k in ("pos64", "pos"))
+    check(rot_err <= PARALLEL_ROT_RAD, f"{what}: orientations {rot_err} "
+          f"rad from the single device's (gate {PARALLEL_ROT_RAD})")
+    check(pos_err <= PARALLEL_POS_REL, f"{what}: float64 positions "
+          f"{pos_err} of the scene's radius from the single device's (gate "
+          f"{PARALLEL_POS_REL})")
+    return dict(point_kernels=kern, point_plain=plain, obs=obs,
+                setup_s=run["setup_s"], solves_s=run["solves_s"],
+                rotations_s=run["rot_s"], positions_s=run.get("pos_s"),
+                positions_f64_s=run["pos64_s"],
+                orientations_max_abs_rad=rot_err,
+                rotation_err_to_truth=_rotation_errors_deg(run["rot"], graph,
+                                                           extrs),
+                positions_f64_max_rel_radius=pos_err,
+                positions_f32_max_rel_radius=pos32_err)
+
+
+def _parallel_single_and_nccl(graph):
+    """The single-device references (the observation-sharded solver
+    takes no plan, so with FAST_PT it runs the plain matvec: "plain" is
+    its reference too), then the sharded solves at world size 1 over
+    NCCL in this process: (references, readings, seconds)."""
+    prob = _nd_problem("cuda")
+    prob_k = ba.add_pallas_matvec_plan(ba.pad_obs_to_multiple(prob, 1024),
+                                       block=1024)
+    bundle_adjust(prob_k, dataclasses.replace(FAST_PT, max_iterations=1))
+    ref = {}
+    for name, p, opts in (("kernels", prob_k, FAST_PT),
+                          ("plain", prob, PARALLEL_PLAIN)):
+        (_, s), sec, counts = _timed(lambda: bundle_adjust(p, opts))
+        ref[name] = _ba_reading(s, sec, counts)
+    del prob, prob_k
+    ref.update(_graph_solves(graph, robust_rotation_averaging,
+                             estimate_positions_lud))
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        nccl = _parallel_solves(make_mesh("cuda", "obs"),
+                                make_mesh("cuda", "edges"), graph)
+    finally:
+        dist.destroy_process_group()
+    return ref, nccl, time.perf_counter() - t0
+
+
+def phase_parallel(city):
+    """The sharded solvers at full width on the card: the point-sharded
+    BA (pcg_fast_pt, through the Schur kernels and through the plain
+    matvec) and the observation-sharded BA on the Notre-Dame problem,
+    the edge-sharded rotation averaging and LUD positions on the 553-view
+    city's graph as GlobalOptions() hands it to them (_parallel_graph);
+    first at world size 1 over NCCL in this process, then on
+    PARALLEL_RANKS processes over gloo on the one card (started first:
+    they come up while this process runs), each held to the
+    single-device solves (PARALLEL_* gates). `gloo_s` counts from their
+    go to their end. Returns the Schur kernels' launches on the
+    point-sharded kernel runs."""
+    t_phase = time.perf_counter()
+    graph = _parallel_graph(city)
+    graph["orientations"] = robust_rotation_averaging(
+        graph["init"], graph["edges"], graph["rel_rot"])
+    # the gloo processes take some 50 s to start on the card's host: they
+    # start now, and wait for `go` until the runs below are done
+    go = multiprocessing.get_context("spawn").Event()
+    gloo, spawned_at = {}, time.time()
+
+    def gloo_ranks():
+        try:
+            gloo["out"] = run_ranks(parallel_rank, PARALLEL_RANKS,
+                                    device="cuda",
+                                    timeout=PARALLEL_TIMEOUT_S,
+                                    args=(graph, go))
+        except BaseException as e:  # raised by the phase's thread below
+            gloo["error"] = e
+    launcher = threading.Thread(target=gloo_ranks)
+    launcher.start()
+    try:
+        ref, nccl, nccl_s = _parallel_single_and_nccl(graph)
+    finally:
+        go_at = time.time()
+        go.set()
+        launcher.join()
+    if "error" in gloo:
+        raise gloo["error"]
+    gloo, gloo_s = gloo["out"], time.time() - go_at
+    check(sorted(r["rank"] for r in gloo) == list(range(PARALLEL_RANKS)),
+          f"parallel: ranks {[r['rank'] for r in gloo]}")
+    for r in gloo[1:]:
+        for k in ("point_kernels", "point_plain", "obs"):
+            check(r[k]["final_cost"] == gloo[0][k]["final_cost"],
+                  f"parallel gloo {k}: rank {r['rank']} ends at "
+                  f"{r[k]['final_cost']}, rank 0 at "
+                  f"{gloo[0][k]['final_cost']}")
+        check(all(np.array_equal(r[k], gloo[0][k]) for k in
+                  ("rot", "pos64")),
+              f"parallel gloo: rank {r['rank']}'s view-graph solves "
+              "differ from rank 0's")
+    res = dict(
+        scene=dict(ba="make_problem(550, 140000, 4, perturb_seed=7)",
+                   views=graph["views"], edges=len(graph["edges"])),
+        options=dict(ba="pcg_fast_pt; plain: pallas_matvec=False",
+                     positions=dataclasses.asdict(PARALLEL_POS_OPTS)),
+        single=dict(kernels=ref["kernels"], plain=ref["plain"],
+                    rotations_s=ref["rot_s"], positions_s=ref["pos_s"],
+                    positions_f64_s=ref["pos64_s"],
+                    rotation_err_to_truth=_rotation_errors_deg(
+                        ref["rot"], graph, city["extrs"])),
+        nccl_world_1=_parallel_gates(nccl, ref, "parallel nccl",
+                                     city["extrs"], graph),
+        nccl_s=nccl_s,
+        gloo_ranks=[_parallel_gates(r, ref, f"parallel gloo rank "
+                                    f"{r['rank']}", city["extrs"], graph)
+                    for r in gloo],
+        gloo_s=gloo_s,
+        # from the spawn to the ranks' first line, then their two meshes
+        gloo_spawn_s=max(r["entered_at"] for r in gloo) - spawned_at,
+        gloo_meshes_s=max(r["meshes_s"] for r in gloo),
+        gloo_waited_for_go_s=go_at - max(r["entered_at"] + r["meshes_s"]
+                                         for r in gloo),
+        gates=dict(cost_rel=PARALLEL_COST_REL, rot_rad=PARALLEL_ROT_RAD,
+                   pos_rel_radius=PARALLEL_POS_REL),
+        seconds=time.perf_counter() - t_phase, nvidia_smi=nvidia_smi())
+    emit("parallel", **res)
+    return {k: dict(nccl_world_1=nccl["point_kernels"]["launches"][k],
+                    gloo=[r["point_kernels"]["launches"][k] for r in gloo])
+            for k in ("schur_pass1", "schur_pass2")}
 
 
 class RotationSpy:
@@ -4269,6 +4607,7 @@ def main():
     n_incr24, err_incr24, scene24 = phase_incremental_24()
     city = _city(*CITY)
     phase_global_1dsfm(city)
+    parallel_launches = phase_parallel(city)
     n_global24 = phase_global_24(scene24)
     io_keep = {}
     n_io_cli = phase_io_cli(scene24, keep=io_keep)
@@ -4302,7 +4641,9 @@ def main():
             bound_by=rec["bound_by"], library_ms=None,
             shape="notre_dame bf16", trafalgar_ms=tra["ms"],
             trafalgar_plain_ms=tra["plain_ms"],
-            trafalgar_bound_ms=tra["bound_ms"]))
+            trafalgar_bound_ms=tra["bound_ms"],
+            **({"parallel_launches": parallel_launches[name]}
+               if layout == "t" else {})))
     rec, tra = bres["notre_dame"], bres["trafalgar"]
     summary.append(dict(
         name="ba_blocks", route="cuda", source=BLOCKS_SOURCE,

@@ -387,9 +387,34 @@ def test_make_problem_perturbation_matches_bench_probe():
 
 @pytest.mark.parametrize("extra", [{"axis_name": "obs"}])
 def test_unported_options_raise(extra):
+    """axis_name, once refused, now runs the sharded solver: outside a
+    mesh that binds it, it raises; a 2-rank point-sharded solve (thread
+    ranks, gloo) matches the single-device solve in float64."""
+    from theiasfm_tpu_torch.parallel import point_sharded_bundle_adjust
+    from torch_parallel_cases import run_threads
+
     tp = make_problem(4, 16, 2, dtype=torch.float32, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(LookupError, match="not bound"):
         bundle_adjust(tp, tba.BAOptions(**extra))
+    prob = make_problem(8, 96, 3, dtype=torch.float64, device="cpu")
+    # CG to a tight tolerance, as F64_BASE: a truncated CG lets the
+    # parameters wander along the gauge while the costs agree
+    opts = tba.BAOptions(max_iterations=4, cg_iterations=300, cg_tol=1e-14,
+                         loss="huber", loss_scale=2.0,
+                         function_tolerance=0.0)
+    want, ws = bundle_adjust(prob, opts)
+
+    def body(ranks):
+        out, s = point_sharded_bundle_adjust(prob, opts, ranks.mesh(),
+                                             axis_name=extra["axis_name"])
+        return out.extrinsics.numpy(), out.points.numpy(), float(
+            s.final_cost)
+
+    for extr, pts, cost in run_threads(body, 2):
+        assert cost == pytest.approx(float(ws.final_cost), rel=1e-10)
+        np.testing.assert_allclose(extr, want.extrinsics.numpy(),
+                                   atol=1e-9)
+        np.testing.assert_allclose(pts, want.points.numpy(), atol=1e-9)
 
 
 @pytest.mark.parametrize("extra", [{"linear_solver": "dense_schur"},

@@ -390,19 +390,87 @@ def test_rigid_subgraph_extraction_matches_jax():
 # ------------------------------------------------------------------ misc
 
 def test_sharded_forms_raise_naming_slice_e():
+    """The device solvers' sharded forms (slice E) raise, naming the axis,
+    when no mesh binds axis_name (never a silent single-device solve)."""
     x = torch.zeros((3, 3), dtype=torch.float64)
     i = torch.tensor([0, 1])
-    with pytest.raises(NotImplementedError, match="slice E"):
+    with pytest.raises(LookupError, match="'edges' is not bound"):
         tgp.rotation_averaging._rotation_averaging_device(
             x, i, i, x[:2], torch.ones(2, dtype=torch.float64),
             tgp.RobustRotationOptions(), 3, axis_name="edges")
-    with pytest.raises(NotImplementedError, match="slice E"):
+    with pytest.raises(LookupError, match="'edges' is not bound"):
         tpe._solve_positions(x, i, i, x[:2], torch.ones(2),
                              tgp.PositionEstimatorOptions(), 3, "lud",
                              axis_name="edges")
-    with pytest.raises(NotImplementedError, match="slice E"):
-        tpe._solve_positions_lud_convex(
-            x, i, i, x[:2], torch.ones(2), tgp.PositionEstimatorOptions(), 3)
+
+
+def _split_edges(r, n, *arrays):
+    """Rank r's contiguous share of each edge array, as tensors."""
+    k = -(-len(arrays[0]) // n)
+    return [torch.as_tensor(a[r * k:(r + 1) * k]) for a in arrays]
+
+
+def test_sharded_device_solvers_match_single_device():
+    """_rotation_averaging_device and _solve_positions with axis_name on 2
+    thread ranks, each with its half of the edges, against the same
+    solvers on all the edges (float64; short schedules: every CG
+    iteration is an all-reduce)."""
+    from torch_parallel_cases import run_threads
+
+    truth, edges, rel, w, _ = _rotation_graph()
+    init = _t(jgp.orientations_from_mst(20, edges, rel, w))
+    ropts = tgp.RobustRotationOptions(l1_iterations=2, irls_iterations=2,
+                                      cg_iterations=20)
+    ones = np.ones(len(edges))
+    ei, ej = edges[:, 0].astype(np.int64), edges[:, 1].astype(np.int64)
+    want_r = tgp.rotation_averaging._rotation_averaging_device(
+        init, *_split_edges(0, 1, ei, ej, rel, ones), ropts, 20)
+
+    pos = np.random.default_rng(1).normal(size=(20, 3))
+    t_world = pos[ej] - pos[ei]
+    t_world /= np.linalg.norm(t_world, axis=1, keepdims=True)
+    c0 = _t(pos + 0.1 * np.random.default_rng(2).normal(size=pos.shape))
+    popts = tgp.PositionEstimatorOptions(max_iterations=5, cg_iterations=20)
+    want_p = tpe._solve_positions(c0, *_split_edges(0, 1, ei, ej, t_world,
+                                                    ones), popts, 20, "lud")
+
+    def body(ranks):
+        mesh = ranks.mesh("edges")
+        with mesh.bind():
+            r = tgp.rotation_averaging._rotation_averaging_device(
+                init, *_split_edges(ranks.rank, 2, ei, ej, rel, ones),
+                ropts, 20, axis_name="edges")
+            p = tpe._solve_positions(
+                c0, *_split_edges(ranks.rank, 2, ei, ej, t_world, ones),
+                popts, 20, "lud", axis_name="edges")
+        return r.numpy(), p.numpy()
+
+    for r, p in run_threads(body, 2):
+        np.testing.assert_allclose(r, want_r.numpy(), rtol=1e-9,
+                                   atol=1e-12)
+        np.testing.assert_allclose(p, want_p.numpy(), rtol=1e-9,
+                                   atol=1e-12)
+
+
+def test_lud_convex_matches_jax():
+    """_solve_positions_lud_convex (the device BCD of the convex LUD)
+    against JAX's in float64."""
+    _, edges, rel, w, _ = _rotation_graph()
+    rng = np.random.default_rng(4)
+    pos = rng.normal(size=(20, 3)) * 3.0
+    t_world = pos[edges[:, 1]] - pos[edges[:, 0]]
+    t_world /= np.linalg.norm(t_world, axis=1, keepdims=True)
+    init = rng.normal(size=(20, 3))
+    opts = dict(max_iterations=30, cg_iterations=20)
+    want = jpe._solve_positions_lud_convex(
+        jnp.asarray(init), jnp.asarray(edges[:, 0]),
+        jnp.asarray(edges[:, 1]), jnp.asarray(t_world), jnp.asarray(w),
+        jgp.PositionEstimatorOptions(**opts), 20)
+    got = tpe._solve_positions_lud_convex(
+        _t(init), torch.as_tensor(edges[:, 0]), torch.as_tensor(edges[:, 1]),
+        _t(t_world), _t(w), tgp.PositionEstimatorOptions(**opts), 20)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                               atol=1e-9)
 
 
 def test_exports_and_options_match_jax():

@@ -25,6 +25,15 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
   * LM trust region with accept/reject and lambda adaptation, as a
     host loop; the CG loop tests its stopping rule on the host once per
     iteration.
+  * `BAOptions.axis_name` (the sharded solvers of
+    theiasfm_tpu_torch.parallel): every rank holds a slice of the
+    observations and the same camera and intrinsics state, and each
+    camera-, group- and cost-side reduction is all-reduced over the
+    named axis (utils/collectives.psum) where the JAX solver psums under
+    shard_map; point blocks stay local. The observation-sharded solver
+    (parallel/mesh.py) also all-reduces the point-side reductions (its
+    points are replicated). Every branch of the LM and CG loops reads
+    all-reduced values, so the ranks take the same decisions.
   * Each phase of an LM iteration is a `torch.profiler` range named
     "ba.<phase>" (linearize, blocks, rhs, precond, cg, factor, backsub,
     inner, cost), so a profile splits the iteration's device time by
@@ -39,8 +48,7 @@ grp_idx_map/valid, cam_sort_perm, obs_cam_sorted — are accepted and not
 read, as are the dense-Schur gather tables (cam_pair_tables,
 cam_pair_perm_fwd/rev): the dense solver forms its correction blocks
 from pt_idx_map/valid with index_add_ (the PCG solver does not read
-those either). `axis_name` (the sharded solver)
-raises NotImplementedError.
+those either).
 """
 from __future__ import annotations
 
@@ -53,6 +61,7 @@ import torch
 from torch.profiler import record_function
 
 from ...camera import models as cm
+from ...utils import collectives
 from ...utils.device import full_f32
 from ...utils.dispatch import count_dispatch
 from ...utils.padding import next_bucket
@@ -152,8 +161,10 @@ class BAOptions:
     jacobian_reuse: bool = False
     # keep the SCHUR_JACOBI preconditioner across rejected steps
     precond_reuse: bool = False
-    # shard_map axis of the multi-device solver: not ported yet
-    axis_name: Optional[str] = None
+    # mesh axis (or tuple of axes) of the sharded solvers: camera, group
+    # and cost reductions are all-reduced over it (theiasfm_tpu_torch.
+    # parallel binds it); None = one device
+    axis_name: Optional[object] = None
 
 
 class BASummary(NamedTuple):
@@ -272,10 +283,6 @@ def _check_supported(prob: BAProblem, opts: BAOptions):
             "linear_solver='dense_schur' requires pt_idx_map — build the "
             "problem with add_point_obs_map/pad_ba_problem("
             "build_point_obs_map=True)")
-    if opts.axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (the sharded multi-device solver) is not ported "
-            "to theiasfm_tpu_torch yet (see ROADMAP.md)")
     if opts.preconditioner not in ("schur_jacobi", "block_diag"):
         raise ValueError(f"unknown preconditioner {opts.preconditioner!r}")
 
@@ -297,7 +304,19 @@ def blocks_kernel_eligible(prob: BAProblem, opts: BAOptions) -> bool:
 
 def bundle_adjust(prob: BAProblem, opts: BAOptions):
     """Run LM. Returns (BAProblem with updated params, BASummary)."""
+    return _bundle_adjust(prob, opts)
+
+
+def _bundle_adjust(prob: BAProblem, opts: BAOptions,
+                   points_replicated: bool = False):
+    """bundle_adjust; points_replicated (set only by the
+    observation-sharded solver, parallel/mesh.py) also all-reduces the
+    point-side reductions over opts.axis_name."""
     _check_supported(prob, opts)
+    # Under axis_name the camera, group and cost reductions (and, with
+    # replicated points, the point reductions) are completed over the
+    # mesh, as JAX's psums do; an unbound axis raises here
+    _psum = collectives.psum_over(opts.axis_name)
     Nc = prob.extrinsics.shape[0]
     Ng = prob.intrinsics.shape[0]
     Np = prob.points.shape[0]
@@ -327,24 +346,27 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
             out[:, active_idx] = dg
         return out
 
+    def _psum_pt(x):
+        return _psum(x) if points_replicated else x
+
     def seg_cam(x):
         out = torch.zeros((Nc,) + x.shape[1:], dtype=x.dtype, device=device)
-        return out.index_add_(0, obs_cam, x)
+        return _psum(out.index_add_(0, obs_cam, x))
 
     def seg_pt(x):
         out = torch.zeros((Np,) + x.shape[1:], dtype=x.dtype, device=device)
-        return out.index_add_(0, obs_pt, x)
+        return _psum_pt(out.index_add_(0, obs_pt, x))
 
     def seg_grp(x):
         if Ng == 1:
-            return torch.sum(x, dim=0, keepdim=True)
+            return _psum(torch.sum(x, dim=0, keepdim=True))
         out = torch.zeros((Ng,) + x.shape[1:], dtype=x.dtype, device=device)
-        return out.index_add_(0, obs_group, x)
+        return _psum(out.index_add_(0, obs_group, x))
 
     def grp_reduce(Ji3, t):
         """sum over obs of Ji^T t per group -> (Ng, P)."""
         if Ng == 1:
-            Z = Ji3.reshape(M, 2 * P).T @ t                  # (2P, 2)
+            Z = _psum(Ji3.reshape(M, 2 * P).T @ t)           # (2P, 2)
             Z3 = Z.reshape(2, P, 2)
             return (Z3[0, :, 0] + Z3[1, :, 1])[None]
         return seg_grp(torch.einsum("mkp,mk->mp", Ji3, t))
@@ -402,10 +424,12 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
     def _make_blocks(r, Jc12, JiP, Jp6):
         pt_blk, cam_blk, X, Y = blocks_fn(Jc12, JiP, Jp6, r, obs_cam,
                                           obs_pt, Nc, Np)
+        pt_blk, cam_blk = _psum_pt(pt_blk), _psum(cam_blk)
         Hpp9, gp = pt_blk[:, :9], pt_blk[:, 9:]
         Hcc = cam_blk[:, :36].reshape(Nc, 6, 6)
         gc = cam_blk[:, 36:]
         if Ng == 1:
+            X, Y = _psum(X), _psum(Y)
             X = X.reshape(2, P, 2, P)
             Hgg = (X[0, :, 0, :] + X[1, :, 1, :])[None]
             Y = Y.reshape(2, P, 2)
@@ -454,8 +478,8 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
                 corr = P_state
             else:
                 with record_function("ba.precond"):
-                    corr = _dense_schur_corr(prob, Jc12, JiP, Jp6, Hpp_inv,
-                                             obs_pairs)
+                    corr = tuple(_psum(c) for c in _dense_schur_corr(
+                        prob, Jc12, JiP, Jp6, Hpp_inv, obs_pairs))
             with record_function("ba.factor"):
                 dc, dg = _dense_schur_factor_solve(Hcc, Hgg, bc, bg, lam,
                                                    *corr)
@@ -485,11 +509,14 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
                 u, wp = fm.pass1(jc_k, ji_k, jp_k, obs_cam, obs_pt,
                                  vc.contiguous(), vg[0].contiguous(), Np,
                                  pt_index)
-                zp = _mat3vec(Hpp_inv, wp)
+                zp = _mat3vec(Hpp_inv, _psum_pt(wp))
                 yc, yg2 = fm.pass2(jc_k, ji_k, jp_k, obs_cam, obs_pt, u,
                                    zp, Nc, cam_index)
+                # the kernels sum this rank's observations; the camera
+                # and group sums complete over the mesh (JAX :794-797)
                 g2 = yg2.reshape(2, P, 2)
-                yg = (g2[0, :, 0] + g2[1, :, 1])[None]
+                yc = _psum(yc)
+                yg = _psum((g2[0, :, 0] + g2[1, :, 1])[None])
                 return yc + diag_c * vc, yg + diag_g * vg
         else:
             Jc3m = Jc_mv.to(dtype).reshape(M, 2, 6)
@@ -537,7 +564,7 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
             if Ng == 1:
                 Ug = round_mv(torch.einsum("mkp,mkc->mpc", Ji3, Jp3), mv)
                 Tg = round_mv(torch.einsum("mpc,mce->mpe", Ug, H9), mv)
-                G2 = (Tg.reshape(M, 3 * P).T @ Ug.reshape(M, 3 * P))
+                G2 = _psum(Tg.reshape(M, 3 * P).T @ Ug.reshape(M, 3 * P))
                 Sgg_corr = torch.diagonal(G2.reshape(P, 3, P, 3),
                                           dim1=1, dim2=3).sum(-1)[None]
             else:
@@ -644,7 +671,7 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
                                    intr[obs_group], pts[obs_pt],
                                    prob.obs_pix)
             cost_m = _per_obs_cost(opts, r, bad, obs_valid)
-            return 0.5 * torch.sum(cost_m), r
+            return _psum(0.5 * torch.sum(cost_m)), r
 
     extr, intr, pts = prob.extrinsics, prob.intrinsics, prob.points
     cost, r_cur = cost_and_residuals(extr, intr, pts)
@@ -654,11 +681,14 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
              if opts.trace_costs else None)
     # precond reuse is valid without jacobian reuse: a rejected step
     # leaves the parameters (hence the jacobians and undamped blocks)
-    # unchanged; only lambda differs
+    # unchanged; only lambda differs. Under axis_name neither reuse runs
+    # (JAX's rule, bundle_adjustment.py:1015,1021).
+    jacobian_reuse = opts.jacobian_reuse and opts.axis_name is None
+    precond_reuse = opts.precond_reuse and opts.axis_name is None
     J_state = B_state = P_state = None
     prev_accepted, done, it = True, False, 0
     while it < opts.max_iterations and not done:
-        if opts.jacobian_reuse:
+        if jacobian_reuse:
             # a rejected step leaves the parameters unchanged: reuse the
             # jacobians and the undamped blocks
             if prev_accepted:
@@ -668,7 +698,7 @@ def bundle_adjust(prob: BAProblem, opts: BAOptions):
         else:
             system = build_system(extr, intr, pts, r_cur)
             blocks = make_blocks(*system)
-        rebuild = prev_accepted if opts.precond_reuse else None
+        rebuild = prev_accepted if precond_reuse else None
         dc, dg, dp, P_state = solve_normal_eqs(*system, blocks, lam,
                                                P_state, rebuild)
         extr_new = extr + dc

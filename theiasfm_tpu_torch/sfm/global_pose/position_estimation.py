@@ -19,6 +19,8 @@ by default) as eager loops without a host sync: up to 300 steps of 40
 CG iterations, where JAX runs one jitted fori_loop. The LUD's convex
 stage (block coordinate descent with a sparse Cholesky per step) and
 the spanning-tree start stay on the host in numpy/scipy, as in JAX.
+With `axis_name` the polish's edges are sharded over a mesh axis
+(parallel/edge_sharded.py) and every edge reduction is all-reduced.
 """
 from __future__ import annotations
 
@@ -27,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from ...utils import collectives
 from ...utils.device import full_f32, resolve_device
 from .rotation_averaging import _cg, _host_rotations, _segment_sum
 
@@ -53,16 +56,14 @@ def _direction_jacobian(d, inv_norm):
 def _solve_positions(init_pos, edge_i, edge_j, t_world, edge_w,
                      opts: PositionEstimatorOptions, num_views: int,
                      mode: str, axis_name=None):
-    """The chordal GN on the tensors' device. axis_name (JAX: edges
-    sharded over a mesh axis, every reduction psummed) is the
-    multi-device form, which is not ported (ROADMAP.md, slice E)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (the edge-sharded multi-device position solver) is "
-            "not ported to theiasfm_tpu_torch yet (ROADMAP.md, slice E)")
+    """The chordal GN on the tensors' device. axis_name: the edges are
+    this rank's shard of a mesh axis (the positions are replicated) and
+    every edge->view reduction and edge-sum scalar is all-reduced over
+    it (JAX's psums)."""
+    _psum = collectives.psum_over(axis_name)
     free = (torch.arange(num_views, device=init_pos.device) != 0)[:, None]
     valid = (edge_w > 0).to(init_pos.dtype)
-    n_valid = torch.clamp(torch.sum(valid), min=1.0)
+    n_valid = torch.clamp(_psum(torch.sum(valid)), min=1.0)
 
     def residuals(c):
         d = c[edge_j] - c[edge_i]
@@ -71,18 +72,18 @@ def _solve_positions(init_pos, edge_i, edge_j, t_world, edge_w,
         return t_world - d * inv_n[:, None], d, inv_n
 
     def reduce(g):
-        return (_segment_sum(g, edge_j, num_views) -
-                _segment_sum(g, edge_i, num_views))
+        return _psum(_segment_sum(g, edge_j, num_views) -
+                     _segment_sum(g, edge_i, num_views))
 
     def cost(cc):
         rr, _, _ = residuals(cc)
         rrn = torch.linalg.norm(rr, dim=-1)
         if mode == "lud":
-            return torch.sum(edge_w * rrn)
+            return _psum(torch.sum(edge_w * rrn))
         a = opts.robust_loss_width
         quad = 0.5 * rrn ** 2
         lin = a * (rrn - 0.5 * a)
-        return torch.sum(edge_w * torch.where(rrn <= a, quad, lin))
+        return _psum(torch.sum(edge_w * torch.where(rrn <= a, quad, lin)))
 
     def gn_step(c):
         r, d, inv_n = residuals(c)
@@ -105,8 +106,8 @@ def _solve_positions(init_pos, edge_i, edge_j, t_world, edge_w,
         g = (JjT @ (r * w[:, None])[..., None])[..., 0]
         b = -reduce(g) * free
         diagJ = torch.sum(Jj * Jj, dim=-2) * w[:, None]
-        deg = (_segment_sum(diagJ, edge_j, num_views) +
-               _segment_sum(diagJ, edge_i, num_views))
+        deg = _psum(_segment_sum(diagJ, edge_j, num_views) +
+                    _segment_sum(diagJ, edge_i, num_views))
         M_inv = 1.0 / torch.clamp(deg, min=1e-10)
         x = _cg(matvec, b, M_inv, opts.cg_iterations)
         c_new = c + x
@@ -114,8 +115,8 @@ def _solve_positions(init_pos, edge_i, edge_j, t_world, edge_w,
         c = torch.where(cost(c_new) < cost(c), c_new, c)
         # re-pin scale: mean baseline = 1 (scale gauge); weight-masked
         # so padding edges (w = 0) don't skew the mean
-        dsum = torch.sum(torch.linalg.norm(c[edge_j] - c[edge_i], dim=-1)
-                         * valid)
+        dsum = _psum(torch.sum(
+            torch.linalg.norm(c[edge_j] - c[edge_i], dim=-1) * valid))
         return c / torch.clamp(dsum / n_valid, min=1e-10)
 
     c = init_pos
@@ -146,13 +147,46 @@ def _random_init(num_views, edges, t_world, seed):
     return pos
 
 
-def _solve_positions_lud_convex(*args, **kwargs):
-    """The convex LUD's block coordinate descent on the device: the JAX
-    package runs it only on the edge-sharded multi-device path (the
-    single-device estimators use the host BCD, _lud_bcd_sparse)."""
-    raise NotImplementedError(
-        "_solve_positions_lud_convex (the edge-sharded multi-device LUD) "
-        "is not ported yet: slice E of the port")
+def _solve_positions_lud_convex(init_pos, edge_i, edge_j, t_world, edge_w,
+                                opts: PositionEstimatorOptions,
+                                num_views: int):
+    """The convex LUD (Ozyesil-Singer, the 1DSfM formulation) on the
+    tensors' device:
+
+        min_{c, d}  sum_e w_e || (c_j - c_i) - d_e t_e ||
+        s.t. d_e >= 1,  c_0 = 0,
+
+    by block coordinate descent: d_e given c is the baseline's
+    projection on t_e, clipped at 1; c given d and the IRLS weights is a
+    linear least squares with constant +/-I blocks, solved by
+    Jacobi-preconditioned CG warm-started from c. opts.max_iterations
+    steps of opts.cg_iterations CG iterations, no host sync. The
+    single-device estimators run the host BCD (_lud_bcd_sparse)
+    instead, as in JAX."""
+    free = (torch.arange(num_views, device=init_pos.device) != 0)[:, None]
+
+    def reduce(u):
+        return (_segment_sum(u, edge_j, num_views) -
+                _segment_sum(u, edge_i, num_views))
+
+    c = init_pos * free
+    for _ in range(opts.max_iterations):
+        base = c[edge_j] - c[edge_i]
+        d = torch.clamp(torch.sum(base * t_world, dim=-1), min=1.0)
+        r = base - d[:, None] * t_world
+        rn = torch.linalg.norm(r, dim=-1)
+        w = edge_w / torch.clamp(rn, min=1e-3)   # IRLS for the norm sum
+
+        def matvec(x):
+            return reduce((x[edge_j] - x[edge_i]) * w[:, None]) * free + \
+                1e-9 * x
+
+        b = reduce(d[:, None] * t_world * w[:, None]) * free
+        deg = (_segment_sum(w, edge_j, num_views) +
+               _segment_sum(w, edge_i, num_views))
+        M_inv = (1.0 / torch.clamp(deg, min=1e-10))[:, None]
+        c = _cg(matvec, b, M_inv, opts.cg_iterations, x0=c) * free
+    return c
 
 
 def _world_directions(orientations, edges, rel_positions):

@@ -18,7 +18,9 @@ Where JAX runs the whole schedule as one jitted fori_loop, this runs it
 as eager loops on `device` (the card unless the caller passes "cpu") in
 `dtype` (float32 by default) with no host sync inside: 5 L1 + 10 IRLS
 steps of 50 CG iterations each. index_add_ sums with atomics on CUDA,
-so the card's bits may change from run to run.
+so the card's bits may change from run to run. With `axis_name` the
+edges are sharded over a mesh axis (parallel/edge_sharded.py) and every
+edge-to-view reduction is all-reduced over it.
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 
 from ...math import rotation as rot
 from ...math.graph import minimum_spanning_tree
+from ...utils import collectives
 from ...utils.device import full_f32, resolve_device
 
 
@@ -94,10 +97,13 @@ def _segment_sum(u, index, num_segments):
     return out.index_add_(0, index, u)
 
 
-def _cg(matvec, b, M_inv, iters):
-    """Jacobi-preconditioned CG from 0, a fixed number of iterations and
-    no host sync (JAX's fori_loop body)."""
-    x, res = torch.zeros_like(b), b
+def _cg(matvec, b, M_inv, iters, x0=None):
+    """Jacobi-preconditioned CG from x0 (default 0), a fixed number of
+    iterations and no host sync (JAX's fori_loop body)."""
+    if x0 is None:
+        x, res = torch.zeros_like(b), b
+    else:
+        x, res = x0, b - matvec(x0)
     p = res * M_inv
     rz = torch.sum(res * p)
     tiny = torch.full((), 1e-30, dtype=b.dtype, device=b.device)
@@ -120,25 +126,23 @@ def _rotation_averaging_device(orient_aa, edge_i, edge_j, rel_aa,
                                num_views: int, axis_name=None):
     """The full L1 -> IRLS schedule on the tensors' device.
 
-    axis_name (JAX: edges sharded over a mesh axis, every edge->view
-    reduction psummed) is the multi-device form, which is not ported
-    (ROADMAP.md, slice E)."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "axis_name (the edge-sharded multi-device rotation averaging) "
-            "is not ported to theiasfm_tpu_torch yet (ROADMAP.md, slice E)")
+    axis_name: the edges are this rank's shard of a mesh axis (the
+    orientation state is replicated) and every edge->view reduction is
+    all-reduced over it, so a CG iteration moves O(V * 3) values whatever
+    the edge count."""
+    _psum = collectives.psum_over(axis_name)
     dtype = orient_aa.dtype
     sigma = float(np.radians(opts.sigma_degrees))
     free = (torch.arange(num_views, device=orient_aa.device) != 0)[:, None]
     R_rel = rot.angle_axis_to_rotation_matrix(rel_aa)
 
     def _reduce(u):
-        return (_segment_sum(u, edge_j, num_views) -
-                _segment_sum(u, edge_i, num_views))
+        return _psum(_segment_sum(u, edge_j, num_views) -
+                     _segment_sum(u, edge_i, num_views))
 
     def _reduce_sym(u):
-        return (_segment_sum(u, edge_j, num_views) +
-                _segment_sum(u, edge_i, num_views))
+        return _psum(_segment_sum(u, edge_j, num_views) +
+                     _segment_sum(u, edge_i, num_views))
 
     def edge_residuals(aa):
         R = rot.angle_axis_to_rotation_matrix(aa)            # (V, 3, 3)
