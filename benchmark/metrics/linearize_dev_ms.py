@@ -1,0 +1,14 @@
+"""linearize_dev_ms: device ms per LM iteration of the operations launched
+inside the port's `ba.linearize` ranges: the residuals and their jacobians (vmap of jacrev over the observations), weighted and masked.
+
+Source: the device trace, each operation placed at the runtime call that
+launched it (benchmark/trace.py), over the traced window's LM
+iterations."""
+RANGE = "ba.linearize"
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.iterations:
+        return None
+    ns = ctx.trace.range_device_ns(RANGE).get(RANGE)
+    return None if ns is None else ns / 1e6 / ctx.iterations

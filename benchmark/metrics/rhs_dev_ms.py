@@ -1,0 +1,14 @@
+"""rhs_dev_ms: device ms per LM iteration of the operations launched
+inside the port's `ba.rhs` ranges: the damped point blocks' inverses and the reduced right-hand side.
+
+Source: the device trace, each operation placed at the runtime call that
+launched it (benchmark/trace.py), over the traced window's LM
+iterations."""
+RANGE = "ba.rhs"
+
+
+def read(ctx):
+    if ctx.trace is None or not ctx.iterations:
+        return None
+    ns = ctx.trace.range_device_ns(RANGE).get(RANGE)
+    return None if ns is None else ns / 1e6 / ctx.iterations
