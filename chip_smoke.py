@@ -1839,8 +1839,7 @@ def phase_incremental(scene):
     FeatureMatcherOptions() with verification, IncrementalOptions());
     one run of extract_and_match_features and build_reconstruction,
     and the same reconstruction once on the CPU from the card's
-    database. (No warm or profiled rerun: the script's time budget;
-    PERF.md keeps an `incr.*` profile.)"""
+    database. (No warm or profiled rerun: the script's time budget.)"""
     opts = ReconstructionBuilderOptions(
         reconstruction_estimator_type="INCREMENTAL")
     held = torch.cuda.memory_allocated() / 2**30

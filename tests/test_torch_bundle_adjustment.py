@@ -53,6 +53,12 @@ def _params(p):
     return [np.asarray(x) for x in (p.extrinsics, p.intrinsics, p.points)]
 
 
+def _launch_counters():
+    """The counters set, less the solver's host reads and LM steps
+    (sync.*, lm.*)."""
+    return {k for k in dispatch_counts() if not k.startswith(("sync.", "lm."))}
+
+
 # ------------------------------------------------------- exact, f64
 
 # CG is run to a tight tolerance: with a truncated CG, f64 rounding
@@ -142,7 +148,7 @@ def test_f32_configs_match_jax(f32_problem, transposed, bf16):
     reset_dispatch_counts()
     _, s_t = bundle_adjust(tp, _opts(opts))
     # on CPU tensors the wrappers run the plain versions: no launches
-    assert set(dispatch_counts()) == {"schur_matvec"}
+    assert _launch_counters() == {"schur_matvec"}
     c_t = float(s_t.final_cost)
     np.testing.assert_allclose(c_t, float(s_j.final_cost), rtol=1e-3)
     np.testing.assert_allclose(c_t, c_xla, rtol=1e-3)
@@ -177,7 +183,7 @@ def test_f32_pallas_blocks_matches_jax(f32_problem):
     assert tba.blocks_kernel_eligible(tp, _opts(opts))
     reset_dispatch_counts()
     out_t, s_t = bundle_adjust(tp, _opts(opts))
-    assert set(dispatch_counts()) == {"schur_matvec"}
+    assert _launch_counters() == {"schur_matvec"}
     c_t = float(s_t.final_cost)
     np.testing.assert_allclose(c_t, float(s_j.final_cost), rtol=1e-3)
     np.testing.assert_allclose(c_t, c_xla, rtol=1e-3)

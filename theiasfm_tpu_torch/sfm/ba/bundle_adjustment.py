@@ -34,10 +34,15 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
     (parallel/mesh.py) also all-reduces the point-side reductions (its
     points are replicated). Every branch of the LM and CG loops reads
     all-reduced values, so the ranks take the same decisions.
-  * Each phase of an LM iteration is a `torch.profiler` range named
-    "ba.<phase>" (linearize, blocks, rhs, precond, cg, factor, backsub,
-    inner, cost), so a profile splits the iteration's device time by
-    phase.
+  * While a profiler runs, each phase of an LM iteration is a
+    `torch.profiler` range named "ba.<phase>" (linearize, blocks, rhs,
+    precond, cg, factor, backsub, inner, cost), so a profile splits the
+    iteration's device time by phase, and each host read of a device
+    value (the CG stopping rule, the LM step, the per-solve index checks,
+    the uploads of host constants) is a range "ba.sync" between them
+    (utils/dispatch.phase, host_sync). Every such read counts under
+    "sync.<site>", profiler or not, and every LM step under "lm.accepted"
+    or "lm.rejected" (utils/dispatch).
 
 The solver runs on the device of the problem's tensors. The JAX
 solver's workarounds for the TPU (flat one-hot einsums, gather-table
@@ -58,12 +63,11 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ...camera import models as cm
 from ...utils import collectives
 from ...utils.device import full_f32
-from ...utils.dispatch import count_dispatch
+from ...utils.dispatch import count_dispatch, host_sync, phase
 from ...utils.padding import next_bucket
 from . import fused_matvec as fm
 from .fused_matvec import round_mv
@@ -214,8 +218,9 @@ def _apply_masks(prob: BAProblem, opts: BAOptions, Jc, Ji, Jp):
         Jc = Jc * 0.0
     elif prob.cam_mask is not None:
         Jc = Jc * prob.cam_mask[prob.obs_cam].to(Jc.dtype)[:, None, None]
-    intr_sel = torch.tensor(opts.optimize_intrinsics, dtype=Ji.dtype,
-                            device=Ji.device)
+    with host_sync("upload"):
+        intr_sel = torch.tensor(opts.optimize_intrinsics, dtype=Ji.dtype,
+                                device=Ji.device)
     Ji = Ji * intr_sel[None, None, :]
     if not opts.optimize_points:
         Jp = Jp * 0.0
@@ -334,7 +339,8 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
     active = tuple(i for i, b in enumerate(opts.optimize_intrinsics)
                    if b and i < Pfull)
     P = max(1, len(active))
-    active_idx = torch.tensor(active if active else (0,), device=device)
+    with host_sync("upload"):
+        active_idx = torch.tensor(active if active else (0,), device=device)
 
     def compress_ji(Ji):
         Ji = Ji[:, :, active_idx]
@@ -388,7 +394,8 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             # the kernels trust their indices: check them once per solve
             lo = torch.stack([obs_cam.min(), obs_pt.min()])
             hi = torch.stack([obs_cam.max(), obs_pt.max()])
-            (cmin, pmin), (cmax, pmax) = lo.tolist(), hi.tolist()
+            with host_sync("index_check", reads=2):
+                (cmin, pmin), (cmax, pmax) = lo.tolist(), hi.tolist()
             if min(cmin, pmin) < 0 or cmax >= Nc or pmax >= Np:
                 raise ValueError("observation indices out of range")
         # the kernels' camera and point segments, fixed by obs_cam and
@@ -404,7 +411,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         the raw residuals there. Returns r (M, 2), Jc (M, 12),
         Ji (M, 2P), Jp (M, 6)."""
         p = prob._replace(extrinsics=extr, intrinsics=intr, points=pts)
-        with record_function("ba.linearize"):
+        with phase("ba.linearize"):
             s = torch.sum(r0 * r0, dim=-1)
             w = robust_weight(opts.loss, s, opts.loss_scale)
             w = torch.where(obs_valid, w, torch.zeros_like(w))
@@ -418,7 +425,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         """Lambda-independent pieces of the normal equations: undamped
         Hpp (flat (Np, 9)), Hcc (Nc, 6, 6), Hgg (Ng, P, P) and the
         gradients gc, gg, gp."""
-        with record_function("ba.blocks"):
+        with phase("ba.blocks"):
             return _make_blocks(r, Jc12, JiP, Jp6)
 
     def _make_blocks(r, Jc12, JiP, Jp6):
@@ -454,9 +461,12 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         precond_reuse is on (rebuild_precond False reuses it)."""
         Hpp9, Hcc, Hgg, gc, gg, gp = blocks
 
-        with record_function("ba.rhs"):
+        with phase("ba.rhs"):
             diag9 = torch.zeros(9, dtype=dtype, device=device)
-            diag9[[0, 4, 8]] = 1.0
+            # setitem with a list index copies the list and the value to
+            # the card: two synchronizing copies
+            with host_sync("upload", reads=2):
+                diag9[[0, 4, 8]] = 1.0
             Hpp_inv = _inv3_flat(Hpp9 * (1.0 + lam * diag9[None, :]),
                                  eps_diag=1e-12)           # (Np, 9)
 
@@ -477,13 +487,13 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
                 # lambda-independent, hence exact.
                 corr = P_state
             else:
-                with record_function("ba.precond"):
+                with phase("ba.precond"):
                     corr = tuple(_psum(c) for c in _dense_schur_corr(
                         prob, Jc12, JiP, Jp6, Hpp_inv, obs_pairs))
-            with record_function("ba.factor"):
+            with phase("ba.factor"):
                 dc, dg = _dense_schur_factor_solve(Hcc, Hgg, bc, bg, lam,
                                                    *corr)
-            with record_function("ba.backsub"):
+            with phase("ba.backsub"):
                 dp = backsub_points(Jc12, JiP, Jp6, dc, dg, Hpp_inv, gp)
             return dc, dg, dp, corr
 
@@ -579,7 +589,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             # affected (the operator itself uses the fresh lambda)
             Pc_inv, Pg_inv = P_state
         else:
-            with record_function("ba.precond"):
+            with phase("ba.precond"):
                 Pc_inv, Pg_inv = build_precond()
 
         def precond(vc, vg):
@@ -589,7 +599,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         def dot(ac, ag, bc_, bg_):
             return torch.sum(ac * bc_) + torch.sum(ag * bg_)
 
-        with record_function("ba.cg"):
+        with phase("ba.cg"):
             x_c = torch.zeros((Nc, 6), dtype=dtype, device=device)
             x_g = torch.zeros((Ng, P), dtype=dtype, device=device)
             r_c, r_g = bc, bg
@@ -598,10 +608,14 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             rz = dot(r_c, r_g, z_c, z_g)
             b_norm = torch.sqrt(dot(bc, bg, bc, bg))
             tol2 = (max(opts.cg_tol, opts.cg_eta) * b_norm) ** 2
-            tiny = torch.tensor(1e-30, dtype=dtype, device=device)
+            with host_sync("upload"):
+                tiny = torch.tensor(1e-30, dtype=dtype, device=device)
             for _ in range(opts.cg_iterations):
                 # one host sync per CG iteration: the stopping rule
-                if not bool(dot(r_c, r_g, r_c, r_g) > tol2):
+                going = dot(r_c, r_g, r_c, r_g) > tol2
+                with host_sync("cg_stop"):
+                    going = bool(going)
+                if not going:
                     break
                 Ap_c, Ap_g = S_matvec(p_c, p_g)
                 pAp = dot(p_c, p_g, Ap_c, Ap_g)
@@ -616,7 +630,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
                 p_c = z_c + beta * p_c
                 p_g = z_g + beta * p_g
                 rz = rz_new
-        with record_function("ba.backsub"):
+        with phase("ba.backsub"):
             dp = backsub_points(Jc12, JiP, Jp6, x_c, x_g, Hpp_inv, gp)
         return x_c, x_g, dp, (Pc_inv, Pg_inv)
 
@@ -666,7 +680,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
     def cost_and_residuals(extr, intr, pts):
         """Total robust cost and the raw residuals (reused for the next
         iteration's jacobian weights)."""
-        with record_function("ba.cost"):
+        with phase("ba.cost"):
             r, bad = _residual_one(opts.model_type, extr[obs_cam],
                                    intr[obs_group], pts[obs_pt],
                                    prob.obs_pix)
@@ -676,7 +690,8 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
     extr, intr, pts = prob.extrinsics, prob.intrinsics, prob.points
     cost, r_cur = cost_and_residuals(extr, intr, pts)
     cost0 = cost
-    lam = torch.tensor(opts.initial_lambda, dtype=dtype, device=device)
+    with host_sync("upload"):
+        lam = torch.tensor(opts.initial_lambda, dtype=dtype, device=device)
     trace = (torch.zeros(opts.max_iterations, dtype=dtype, device=device)
              if opts.trace_costs else None)
     # precond reuse is valid without jacobian reuse: a rejected step
@@ -705,7 +720,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         intr_new = intr + expand_dg(dg)
         pts_new = pts + dp
         if opts.inner_iterations > 0 and opts.optimize_points:
-            with record_function("ba.inner"):
+            with phase("ba.inner"):
                 pts_new = refine_points(extr_new, intr_new, pts_new)
         new_cost, r_new = cost_and_residuals(extr_new, intr_new, pts_new)
         accept_t = new_cost < cost
@@ -724,7 +739,10 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             trace[it] = torch.where(accept_t, new_cost, -new_cost)
         it += 1
         # one host sync per LM iteration
-        prev_accepted, done = torch.stack([accept_t, done_t]).tolist()
+        flags = torch.stack([accept_t, done_t])
+        with host_sync("lm_step"):
+            prev_accepted, done = flags.tolist()
+        count_dispatch("lm.accepted" if prev_accepted else "lm.rejected")
         if prev_accepted:
             extr, intr, pts, r_cur = extr_new, intr_new, pts_new, r_new
 
@@ -743,8 +761,10 @@ def _point_obs_pairs(prob: BAProblem):
     (k == l included), from the (Np, K) table pt_idx_map."""
     idx = prob.pt_idx_map.long()
     valid = prob.pt_idx_valid.bool()
-    n, i, j = torch.nonzero(valid[:, :, None] & valid[:, None, :],
-                            as_tuple=True)
+    pairs = valid[:, :, None] & valid[:, None, :]
+    # nonzero reads its number of pairs on the host
+    with host_sync("point_pairs"):
+        n, i, j = torch.nonzero(pairs, as_tuple=True)
     return idx[n, i], idx[n, j]
 
 

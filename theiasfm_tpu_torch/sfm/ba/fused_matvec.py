@@ -44,7 +44,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ...utils.dispatch import count_dispatch
+from ...utils.dispatch import count_dispatch, host_sync
 
 
 def _round_up(x, m):
@@ -177,7 +177,8 @@ def camera_index(obs_cam, n_cams):
     workspaces: y_work, the (M, 6) rows that stage A writes and stage B
     reads, and g_work, stage A's group partials, one row per block of its
     grid (the device's cap). Every pass 2 given this index reuses them,
-    so calls that share it run on one stream. On obs_cam's device."""
+    so calls that share it run on one stream. On obs_cam's device; two
+    host syncs (sync.segment_count)."""
     dev = obs_cam.device
     order = torch.sort(obs_cam, stable=True).indices.to(torch.int32)
     start = _segment_starts(obs_cam, n_cams)
@@ -203,9 +204,14 @@ def point_index(obs_pt, n_pts):
     segment of the point order begins (start[-1] = M), and order, the
     observations sorted by point, stably, or None when obs_pt is already
     sorted (the solver's case: MatvecPlan requires it), where the point
-    order is the storage order. On obs_pt's device; one host sync."""
+    order is the storage order. On obs_pt's device; three host syncs
+    (sync.point_order, sync.segment_count)."""
     M = obs_pt.shape[0]
-    is_sorted = M < 2 or bool((obs_pt[1:] >= obs_pt[:-1]).all())
+    is_sorted = True
+    if M >= 2:
+        in_order = (obs_pt[1:] >= obs_pt[:-1]).all()
+        with host_sync("point_order"):
+            is_sorted = bool(in_order)
     order = (None if is_sorted else
              torch.sort(obs_pt, stable=True).indices.to(torch.int32))
     return PointIndex(order, _segment_starts(obs_pt, n_pts))
@@ -213,7 +219,12 @@ def point_index(obs_pt, n_pts):
 
 def _segment_starts(ids, n):
     start = torch.zeros(n + 1, dtype=torch.int32, device=ids.device)
-    start[1:] = torch.cumsum(torch.bincount(ids.long(), minlength=n), 0)
+    ids = ids.long()
+    # bincount reads the ids' least and largest values on the host (none
+    # when there are no ids)
+    with host_sync("segment_count", reads=2 if ids.numel() else 0):
+        counts = torch.bincount(ids, minlength=n)
+    start[1:] = torch.cumsum(counts, 0)
     return start
 
 

@@ -13,9 +13,7 @@ batched device call (RANSAC, N-view triangulation, Schur-PCG BA) on
 `device` (the card unless the caller passes "cpu"), in `dtype`
 (float32 by default, as on the TPU). The localization rounds draw their
 hypotheses from one torch.Generator on the device, seeded with
-`IncrementalOptions.seed` (the JAX module's PRNGKey(seed)). The steps
-run under the profiler ranges incr.localize, incr.triangulate, incr.ba
-and incr.filter, which chip_smoke.py reads for its time breakdown.
+`IncrementalOptions.seed` (the JAX module's PRNGKey(seed)).
 """
 from __future__ import annotations
 
@@ -25,7 +23,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ...utils import Timer, count_dispatch, dispatch_counts
 from ...utils.device import full_f32, resolve_device
@@ -175,17 +172,15 @@ def incremental_reconstruction(recon: Reconstruction, graph: ViewGraph,
     generator = torch.Generator(dev).manual_seed(opts.seed)
 
     def filter_outliers():
-        with record_function("incr.filter"):
-            set_outlier_tracks_to_unestimated(
-                recon, opts.max_reprojection_error_pixels,
-                opts.min_triangulation_angle_degrees, **kw)
+        set_outlier_tracks_to_unestimated(
+            recon, opts.max_reprojection_error_pixels,
+            opts.min_triangulation_angle_degrees, **kw)
 
     # resume support: if the reconstruction already has estimated views
     # (e.g. loaded from a snapshot), continue from them instead of
     # re-initializing (ref incremental_reconstruction_estimator.cc:153-156)
     if len(recon.estimated_views()) >= 2:
-        with record_function("incr.triangulate"):
-            estimate_all_tracks(recon, opts.tracks, **kw)
+        estimate_all_tracks(recon, opts.tracks, **kw)
     else:
         # try ordered seed pairs until one triangulates enough tracks
         # (ref ChooseInitialViewPair, kMinNumInitialTracks = 100,
@@ -204,22 +199,20 @@ def incremental_reconstruction(recon: Reconstruction, graph: ViewGraph,
 
         initialized = False
         best_pair, best_n = None, 0
-        with record_function("incr.triangulate"):
-            for pair in pairs[:20]:
-                n = _initialize_from_pair(recon, graph, pair, opts, **kw)
-                if n >= opts.min_num_initial_tracks:
-                    initialized = True
-                    break
-                if n > best_n:
-                    best_pair, best_n = pair, n
-                _reset(pair)
-            if not initialized and best_pair is not None and best_n >= 4:
-                _initialize_from_pair(recon, graph, best_pair, opts, **kw)
+        for pair in pairs[:20]:
+            n = _initialize_from_pair(recon, graph, pair, opts, **kw)
+            if n >= opts.min_num_initial_tracks:
                 initialized = True
+                break
+            if n > best_n:
+                best_pair, best_n = pair, n
+            _reset(pair)
+        if not initialized and best_pair is not None and best_n >= 4:
+            _initialize_from_pair(recon, graph, best_pair, opts, **kw)
+            initialized = True
         if not initialized:
             return {"success": False, "reason": "initialization failed"}
-    with record_function("incr.ba"):
-        _run_ba(recon, opts, **kw)
+    _run_ba(recon, opts, **kw)
     filter_outliers()
 
     views_at_last_full_ba = max(len(recon.estimated_views()), 2)
@@ -250,9 +243,8 @@ def incremental_reconstruction(recon: Reconstruction, graph: ViewGraph,
         n_est_now = len(recon.estimated_views())
         round_cap = max(4, min(opts.localize_round_size, n_est_now))
         round_views = [v for _, v in candidates[:round_cap]]
-        with record_function("incr.localize"):
-            results = localize_views_batch(generator, recon, round_views,
-                                           opts.localize, **kw)
+        results = localize_views_batch(generator, recon, round_views,
+                                       opts.localize, **kw)
         newly = [v for v, ok in results.items() if ok]
         if not newly:
             break
@@ -261,38 +253,29 @@ def incremental_reconstruction(recon: Reconstruction, graph: ViewGraph,
         # newly localized views (vs per-view estimate_all_tracks)
         affected = sorted({t for v in newly
                            for t in recon.views[v].features})
-        with record_function("incr.triangulate"):
-            estimate_all_tracks(recon, opts.tracks, track_ids=affected,
-                                **kw)
+        estimate_all_tracks(recon, opts.tracks, track_ids=affected, **kw)
 
         n_est = len(recon.estimated_views())
         growth = (n_est - views_at_last_full_ba) / max(
             views_at_last_full_ba, 1) * 100.0
         if growth >= opts.full_bundle_adjustment_growth_percent:
-            with record_function("incr.triangulate"):
-                estimate_all_tracks(recon, opts.tracks, **kw)
-            with record_function("incr.ba"):
-                _run_ba(recon, opts, **kw)
+            estimate_all_tracks(recon, opts.tracks, **kw)
+            _run_ba(recon, opts, **kw)
             views_at_last_full_ba = n_est
         else:
             # the partial window must cover the whole round plus
             # context so every just-accepted pose gets refined
             recent = recon.estimated_views()[
                 -max(opts.partial_ba_num_views, len(newly) + 8):]
-            with record_function("incr.ba"):
-                _run_ba(recon, opts, view_subset=recent, **kw)
+            _run_ba(recon, opts, view_subset=recent, **kw)
         filter_outliers()
-        with record_function("incr.filter"):
-            set_underconstrained_as_unestimated(recon)
+        set_underconstrained_as_unestimated(recon)
 
     # final pass
-    with record_function("incr.triangulate"):
-        estimate_all_tracks(recon, opts.tracks, **kw)
-    with record_function("incr.ba"):
-        _run_ba(recon, opts, polish=True, **kw)
+    estimate_all_tracks(recon, opts.tracks, **kw)
+    _run_ba(recon, opts, polish=True, **kw)
     filter_outliers()
-    with record_function("incr.filter"):
-        set_underconstrained_as_unestimated(recon)
+    set_underconstrained_as_unestimated(recon)
     end = dispatch_counts()
     dispatches = {k2: end.get(k2, 0) - dispatches_at_start.get(k2, 0)
                   for k2 in end
