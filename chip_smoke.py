@@ -10,6 +10,9 @@ main paths:
 * the bundle adjuster (the Schur-PCG LM solve at the 1DSfM Notre-Dame
   scale: 550 cameras, 140k points, 560k observations, the `pcg_fast_pt`
   options of scripts/bench_probe.py) and its bucketed entry point;
+* the grouped Schur kernels (one intrinsics group per observation) at
+  BAL Final's shapes, and the solve above with a group per camera
+  through them (`groups_kernel`, `ba_groups`);
 * the rest of the bundle adjuster at the same scale: `pcg_fast_pblocks`
   (make_blocks through the ba_blocks kernel), the reconstruction-level
   entry points on a Reconstruction built view by view, the dense-Schur
@@ -84,9 +87,10 @@ exits non-zero without printing a result. It imports neither JAX nor the
 JAX package. Without a CUDA device it fails at once.
 
 The last three lines are the `kernels` summary (one entry per replaced
-TPU kernel: launches on its path, error against the plain version, its
-time, the plain version's time, the library yardstick's time where one
-PyTorch call computes the same product, and the bound), the card's name
+TPU kernel, and one per grouped Schur kernel: launches on its path,
+error against the plain version, its time, the plain version's time,
+the library yardstick's time where one PyTorch call computes the same
+product, and the bound), the card's name
 and power limit from nvidia-smi, and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -212,6 +216,11 @@ FAST_PT = BAOptions(max_iterations=10, loss="huber", loss_scale=2.0,
 # the ba_blocks kernel as well
 FAST_PBLOCKS = dataclasses.replace(FAST_PT, pallas_blocks=True)
 BLOCKS_SOURCE = "theiasfm_tpu_torch/csrc/ba_blocks.cu"
+GROUPS_SOURCE = "theiasfm_tpu_torch/csrc/schur_groups.cu"
+# BAL Final (benchmark/configs/bal_final13682.json): cameras, points and
+# observations, padded to a multiple of 512 as the benchmark pads them;
+# one intrinsics group per camera, P = 3 (focal, k1, k2)
+FINAL_NC, FINAL_NP, FINAL_OBS, FINAL_P = 13_682, 4_456_117, 28_987_644, 3
 
 
 T0 = time.perf_counter()
@@ -221,6 +230,14 @@ def emit(phase, **fields):
     """One JSON line; `elapsed_s` counts from the script's start."""
     print(json.dumps({"phase": phase, **fields,
                       "elapsed_s": time.perf_counter() - T0}), flush=True)
+
+
+def launch_counts():
+    """The launch counts of utils/dispatch since the last reset, less the
+    bundle adjuster's host reads and LM steps (sync.*, lm.*), which are
+    not launches."""
+    return {k: v for k, v in dispatch_counts().items()
+            if not k.startswith(("sync.", "lm."))}
 
 
 def check(cond, msg):
@@ -323,6 +340,176 @@ def _bytes_ops(name, js, M, Nc, Np, P):
         # Jp·z: 6 FMAs; 2 subs; Jcᵀd: 12 FMAs, 6 adds; Jiᵀd: 4P FMAs
         ops = M * (12 + 2 + 24 + 6 + 8 * P)
     return nbytes, ops
+
+
+def _groups_bytes_ops(name, js, M, Nc, Ng, Np, P):
+    """_bytes_ops for the grouped passes: the group ids (pass 1) or the
+    group index (pass 2), 4 B an observation, and vg or yg, an (Ng, P)
+    f32 table, in place of the one group's (P,) or (2P, 2). Stage A's
+    row workspaces are not counted."""
+    jac = sum(j.numel() * j.element_size() for j in js)
+    if name == "schur_pass1_groups":
+        # jacobians, camera and point ids, group ids, vc, vg in; u, wp out
+        nbytes = jac + 12 * M + 24 * Nc + 4 * P * Ng + 8 * M + 12 * Np
+        ops = M * (4 * (6 + P) + 12 + 3)
+    else:
+        # jacobians, ids, group index, u, zp in; yc, yg out
+        nbytes = jac + 12 * M + 8 * M + 12 * Np + 24 * Nc + 4 * P * Ng
+        # Jp·z: 6 FMAs; 2 subs; Jcᵀd: 12 FMAs, 6 adds; Jiᵀd: 2P FMAs and
+        # P adds
+        ops = M * (12 + 2 + 24 + 6 + 4 * P + P)
+    return nbytes, ops
+
+
+def _final_ids(g):
+    """Point-sorted ids at BAL Final's shapes: each point seen 6 or 7
+    times, cameras drawn per observation, the padding to a multiple of
+    512 repeating the last point (as pad_obs_to_multiple does)."""
+    Nc, Np, n = FINAL_NC, FINAL_NP, FINAL_OBS
+    M = n + (-n) % 512
+    seven = torch.randperm(Np, device="cuda", generator=g) < n - 6 * Np
+    obs_pt = torch.repeat_interleave(
+        torch.arange(Np, dtype=torch.int32, device="cuda"), 6 + seven.long())
+    obs_pt = torch.cat([obs_pt, obs_pt.new_full((M - n,), Np - 1)])
+    obs_cam = torch.randint(0, Nc, (M,), dtype=torch.int32, device="cuda",
+                            generator=g)
+    return obs_cam, obs_pt
+
+
+def phase_groups_kernel(timer):
+    """The grouped kernels (pass1_groups, pass2_groups) against their
+    plain versions at BAL Final's shapes (28,987,904 observations, 13,682
+    cameras and as many groups, P = 3), f32 and bf16, both layouts, with
+    a group per camera (Final's case) and with groups drawn per
+    observation (not a function of the camera): max |kernel - plain| <=
+    TOL * max |plain|, and two launches give the same bits. The median ms
+    of each kernel (L2 flushed before each call, and back to back), of
+    its plain version and, with a group per camera, of the one-group
+    kernels (schur_pass1, schur_pass2) at the same shapes."""
+    results = {}
+    Nc, Np, P = FINAL_NC, FINAL_NP, FINAL_P
+    g = torch.Generator("cuda").manual_seed(13)
+    t0 = time.perf_counter()
+    obs_cam, obs_pt = _final_ids(g)
+    M = obs_pt.shape[0]
+    jac32 = [torch.randn(F, M, device="cuda", generator=g)
+             for F in (12, 2 * P, 6)]
+    vc = torch.randn(Nc, 6, device="cuda", generator=g)
+    zp = torch.randn(Np, 3, device="cuda", generator=g)
+    pt_index = fm.point_index(obs_pt, Np)
+    cam_index = fm.camera_index(obs_cam, Nc)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    for groups in ("camera", "observation"):
+        Ng = Nc
+        obs_group = (obs_cam if groups == "camera" else
+                     torch.randint(0, Ng, (M,), dtype=torch.int32,
+                                   device="cuda", generator=g))
+        ids = (obs_cam, obs_group, obs_pt)
+        vg = torch.randn(Ng, P, device="cuda", generator=g)
+        grp_index = fm.group_index(obs_group, Ng, P)
+        for dtype in (torch.float32, torch.bfloat16):
+            for layout in ("t", "row"):
+                what = f"final {groups} {str(dtype)[6:]} {layout}"
+                js = ([j.to(dtype) for j in jac32] if layout == "t" else
+                      [j.T.contiguous().to(dtype).T for j in jac32])
+                u_ref, wp_ref = fm.pass1_groups_plain(*js, *ids, vc, vg, Np)
+                yc_ref, yg_ref = fm.pass2_groups_plain(*js, *ids, u_ref, zp,
+                                                       Nc, Ng)
+
+                def kern1():
+                    return fm.pass1_groups(*js, *ids, vc, vg, Np, pt_index)
+
+                def kern2():
+                    return fm.pass2_groups(*js, *ids, u_ref, zp, Nc, Ng,
+                                           cam_index, grp_index)
+                out1, again1 = kern1(), kern1()
+                out2, again2 = kern2(), kern2()
+                torch.cuda.synchronize()
+                check(all(map(torch.equal, out1, again1)),
+                      f"{what}: pass1_groups not repeatable")
+                check(all(map(torch.equal, out2, again2)),
+                      f"{what}: pass2_groups not repeatable")
+                errs = {}
+                for key, got, ref in zip(("u", "wp", "yc", "yg"),
+                                         out1 + out2,
+                                         (u_ref, wp_ref, yc_ref, yg_ref)):
+                    check(bool(torch.isfinite(got).all()),
+                          f"{what}: {key} not finite")
+                    err = (got - ref).abs().max().item()
+                    scale = ref.abs().max().item()
+                    errs[key] = (err, scale)
+                    check(err <= TOL[dtype] * scale,
+                          f"{what}: {key} max abs err {err} > "
+                          f"{TOL[dtype]} * {scale}")
+                del out1, again1, out2, again2
+                calls = {
+                    "schur_pass1_groups": (
+                        kern1, lambda: fm.pass1_groups_plain(
+                            *js, *ids, vc, vg, Np),
+                        lambda: fm.pass1(*js, obs_cam, obs_pt, vc,
+                                         vg[0].contiguous(), Np, pt_index),
+                        ("u", "wp")),
+                    "schur_pass2_groups": (
+                        kern2, lambda: fm.pass2_groups_plain(
+                            *js, *ids, u_ref, zp, Nc, Ng),
+                        lambda: fm.pass2(*js, obs_cam, obs_pt, u_ref, zp,
+                                         Nc, cam_index),
+                        ("yc", "yg")),
+                }
+                for name, (kern, plain, one_group, outs) in calls.items():
+                    nbytes, ops = _groups_bytes_ops(name, js, M, Nc, Ng, Np,
+                                                    P)
+                    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+                    t_ops = ops / F32_OPS_PER_S * 1e3
+                    rec = dict(
+                        kernel=name, groups=groups, dtype=str(dtype)[6:],
+                        layout=layout, M=M, Nc=Nc, Ng=Ng, Np=Np, P=P,
+                        setup_s=setup_s,
+                        max_abs_err=max(errs[k][0] for k in outs),
+                        rel_err=max(errs[k][0] / max(errs[k][1], 1e-30)
+                                    for k in outs),
+                        tol_rel=TOL[dtype],
+                        ms=timer.ms(kern),
+                        ms_back_to_back=timer.ms(kern, cold=False),
+                        plain_ms=timer.ms(plain),
+                        one_group_ms=(timer.ms(one_group)
+                                      if groups == "camera" else None),
+                        bytes=nbytes, ops=ops,
+                        bound_ms=max(t_bytes, t_ops),
+                        bound_by="bytes" if t_bytes >= t_ops else "operations")
+                    emit("groups_kernel", **rec)
+                    results[(name, groups, rec["dtype"], layout)] = rec
+                del js, u_ref, wp_ref, yc_ref, yg_ref
+                torch.cuda.empty_cache()
+        del obs_group, ids, vg, grp_index
+    del jac32, obs_cam, obs_pt, vc, zp, pt_index, cam_index
+    torch.cuda.empty_cache()
+    return results
+
+
+def groups_summary(gres, counts):
+    """The `kernels` summary's entries of the grouped pair: bf16, (F, M)
+    layout, a group per camera at Final's shapes (and groups drawn per
+    observation), the largest error of every case, and the launches of
+    ba_groups' solve (counts)."""
+    out = []
+    for name in ("schur_pass1_groups", "schur_pass2_groups"):
+        rec = gres[(name, "camera", "bfloat16", "t")]
+        obs = gres[(name, "observation", "bfloat16", "t")]
+        out.append(dict(
+            name=name, route="cuda", source=GROUPS_SOURCE,
+            replaces="none: the TPU kernels take one intrinsics group",
+            launches=counts[name],
+            max_abs_err=max(r["max_abs_err"] for (k, *_), r in gres.items()
+                            if k == name),
+            ms=rec["ms"], plain_ms=rec["plain_ms"],
+            bound_ms=rec["bound_ms"], bound_by=rec["bound_by"],
+            library_ms=None, one_group_ms=rec["one_group_ms"],
+            shape="final bf16, a group per camera",
+            groups_per_observation_ms=obs["ms"],
+            groups_per_observation_plain_ms=obs["plain_ms"]))
+    return out
 
 
 def phase_kernels(timer):
@@ -507,7 +694,7 @@ def _solve(prob, opts):
     launch counts of exactly this run."""
     reset_dispatch_counts()
     (out, s), sec = sync_time(lambda: bundle_adjust(prob, opts))
-    counts = dispatch_counts()
+    counts = launch_counts()
     for x in (out.extrinsics, out.intrinsics, out.points):
         check(bool(torch.isfinite(x).all()), "non-finite parameters")
     return out, s, sec, counts
@@ -629,6 +816,55 @@ def phase_ba_main():
     return runs
 
 
+def phase_ba_groups():
+    """The bench problem at the Notre-Dame scale with an intrinsics group
+    per camera (BAL's parameterisation) and no plan: S·v through the
+    grouped kernels (group_kernels_eligible), one launch of each per
+    product and none of the one-group kernels, the cost at least halved;
+    f32 with exact CG against the plain matvec, final costs within 1e-3.
+    Returns the launch counts of the pcg_fast_pt solve."""
+    prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
+                        perturb_seed=7)
+    Nc = prob.extrinsics.shape[0]
+    prob = ba.pad_obs_to_multiple(prob._replace(
+        intrinsics=prob.intrinsics.expand(Nc, -1).contiguous(),
+        obs_group=prob.obs_cam.clone()), 1024)
+    check(ba.group_kernels_eligible(prob, FAST_PT) and
+          not ba.kernels_eligible(prob, FAST_PT),
+          "per-camera groups: not on the grouped route")
+    _solve(prob, dataclasses.replace(FAST_PT, max_iterations=2))
+    _, s, sec, counts = _solve(prob, FAST_PT)
+    n = counts.get("schur_matvec", 0)
+    check(n > 0 and all(counts.get(k, 0) == n for k in (
+        "schur_pass1_groups", "schur_pass2_groups")) and
+        not any(k in counts for k in ("schur_pass1", "schur_pass2")),
+        f"ba_groups: launches {counts} for {n} Schur products")
+    c0, c1 = float(s.initial_cost), float(s.final_cost)
+    check(np.isfinite(c1) and c1 < 0.5 * c0,
+          f"ba_groups: cost {c0} -> {c1} did not halve")
+    exact = dataclasses.replace(FAST_PT, matvec_bf16=False, cg_eta=0.0)
+    _, s_k, _, counts_k = _solve(prob, exact)
+    check(counts_k.get("schur_pass1_groups", 0) > 0,
+          "ba_groups[exact]: no grouped launches")
+    _, s_p, _, counts_p = _solve(
+        prob, dataclasses.replace(exact, pallas_matvec=False))
+    check("schur_pass1_groups" not in counts_p,
+          "plain solve launched grouped kernels")
+    ck, cp = float(s_k.final_cost), float(s_p.final_cost)
+    rel = abs(ck - cp) / abs(cp)
+    emit("ba_groups", config="pcg_fast_pt, a group per camera",
+         n_cams=Nc, n_groups=prob.intrinsics.shape[0],
+         n_pts=prob.points.shape[0], n_obs=prob.obs_cam.shape[0],
+         initial_cost=c0, final_cost=c1, iterations=s.num_iterations,
+         wall_s=sec, schur_products=n,
+         launches={k: counts[k] for k in ("schur_pass1_groups",
+                                          "schur_pass2_groups")},
+         exact_kernel_final_cost=ck, exact_plain_final_cost=cp,
+         rel_diff=rel, tol_rel=1e-3)
+    check(rel <= 1e-3, f"grouped and plain solves disagree: {ck} vs {cp}")
+    return counts
+
+
 # ------------------------------------------------------------- bucketed
 
 def phase_bucketed():
@@ -636,7 +872,7 @@ def phase_bucketed():
     opts = dataclasses.replace(FAST_PT, max_iterations=5)
     reset_dispatch_counts()
     (out, s), sec = sync_time(lambda: ba.bundle_adjust_bucketed(prob, opts))
-    counts = dispatch_counts()
+    counts = launch_counts()
     _counts_check(counts, "bucketed")
     check(out.points.shape == prob.points.shape, "bucketed: shape")
     c0, c1 = float(s.initial_cost), float(s.final_cost)
@@ -793,7 +1029,7 @@ def phase_ba_entry():
     torch.cuda.reset_peak_memory_stats()
     summary, sec = sync_time(lambda: bundle_adjust_reconstruction(
         rec, FAST_PBLOCKS))
-    counts = dispatch_counts()
+    counts = launch_counts()
     _counts_check(counts, "ba_entry")
     check(counts.get("ba_blocks", 0) == summary["num_iterations"],
           f"ba_entry: ba_blocks launches {counts}")
@@ -892,7 +1128,7 @@ def phase_ba_f64():
     reset_dispatch_counts()
     (out64, s64), sec = sync_time(
         lambda: ba.bundle_adjust_host_f64(out32, polish))
-    counts = dispatch_counts()
+    counts = launch_counts()
     check(out64.points.dtype == torch.float64 and
           out64.points.device.type == "cuda", "ba_f64: not f64 on the card")
     for x in (out64.extrinsics, out64.intrinsics, out64.points):
@@ -1125,7 +1361,7 @@ def phase_frontend():
         return fm.match_images(), db
 
     (n_pairs, db), match_s = sync_time(match_all)
-    counts = dispatch_counts()
+    counts = launch_counts()
     check(counts == {"top2_match": 2},
           f"frontend: launches {counts}, expected 2 top2_match")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1141,7 +1377,7 @@ def phase_frontend():
     for _ in range(3):
         reset_dispatch_counts()
         _, sec = sync_time(match_all)
-        check(dispatch_counts() == {"top2_match": 2},
+        check(launch_counts() == {"top2_match": 2},
               "frontend: top2_match launches per match_images != 2")
         match_warm.append(sec)
 
@@ -1181,7 +1417,7 @@ def phase_frontend():
     reset_dispatch_counts()
     idx, valid, _ = tfm.match_descriptors_fused(a, b)
     ridx, _, _ = tfm.match_descriptors_fused(b, a)
-    pair_counts = dispatch_counts()
+    pair_counts = launch_counts()
     check(pair_counts == {"top2_match": 2},
           f"frontend pair: launches {pair_counts}")
     valid = valid & (ridx[idx.long()] == torch.arange(len(a), device="cuda",
@@ -1458,7 +1694,7 @@ def phase_frontend_verify(scene):
         reset_dispatch_counts()
         with _VerifySpy() as spy:
             (n_pairs, db), first_s = sync_time(lambda: match_all(opts))
-        counts = dispatch_counts()
+        counts = launch_counts()
         check(counts == {"top2_match": 2},
               f"frontend_verify {run}: launches {counts}, expected 2 "
               "top2_match")
@@ -1478,7 +1714,7 @@ def phase_frontend_verify(scene):
             reset_dispatch_counts()
             with _VerifySpy() as spy:
                 _, sec = sync_time(lambda: match_all(opts))
-            check(dispatch_counts() == {"top2_match": 2},
+            check(launch_counts() == {"top2_match": 2},
                   "frontend_verify: top2_match launches per match_images "
                   "!= 2")
             warm.append(sec)
@@ -1801,7 +2037,7 @@ def _builder_run(scene, opts, what, gate=(INCR_VIEWS_MIN_SHARE,
     b = _builder(scene, opts)
     reset_dispatch_counts()
     n_pairs, em_s = sync_time(b.extract_and_match_features)
-    match_counts = dispatch_counts()
+    match_counts = launch_counts()
     pairs = b._matcher._pairs
     n_matched = (len(pairs) if pairs is not None else
                  len(scene["names"]) * (len(scene["names"]) - 1) // 2)
@@ -1813,7 +2049,7 @@ def _builder_run(scene, opts, what, gate=(INCR_VIEWS_MIN_SHARE,
     spy = SeedSpy(seed_module) if seed_module else None
     with spy or contextlib.nullcontext():
         models, rec_s = sync_time(b.build_reconstruction)
-    counts = dispatch_counts()
+    counts = launch_counts()
     check(len(models) >= 1, f"{what}: no model")
     report = model_report(models[0], scene["cams"])
     check(builder_gate(report, len(scene["names"]), *gate),
@@ -2153,7 +2389,7 @@ def _global_run(city, what, profile=False, filter_spy=False):
             sec = prof["wall_s"]
         else:
             summary, sec = sync_time(run)
-    counts = dispatch_counts()
+    counts = launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     check(summary["success"], f"{what}: {summary}")
     check(spy.report is not None, f"{what}: no pose reached triangulation")
@@ -2293,7 +2529,7 @@ def _timed(fn):
     synchronize) and the launch counts of exactly this call."""
     reset_dispatch_counts()
     out, sec = sync_time(fn)
-    return out, sec, dispatch_counts()
+    return out, sec, launch_counts()
 
 
 def _ba_reading(s, sec, counts):
@@ -2777,7 +3013,7 @@ def phase_io_cli(scene, device="cuda", gate=GLOBAL24_GATE, keep=None):
         def extract_and_match_features(self):
             out, rec["extract_and_match_s"] = sync_time(
                 super().extract_and_match_features)
-            rec["match_counts"] = dispatch_counts()
+            rec["match_counts"] = launch_counts()
             return out
 
         def build_reconstruction(self):
@@ -3209,7 +3445,7 @@ def phase_apps_f2(scene, scene24, io_dir, device="cuda"):
         finally:
             cal.ReconstructionBuilder = Real
         sec["calibrate_camera_intrinsics"] = cal_s[0]
-        n_top2 = dispatch_counts().get("top2_match", 0)
+        n_top2 = launch_counts().get("top2_match", 0)
         # every pair of the images (no pair selection), in chunks
         pairs = [len(b._matcher._names) * (len(b._matcher._names) - 1) // 2
                  for b in builders]
@@ -4593,8 +4829,10 @@ def main():
     timer = Timer()
     kres = phase_kernels(timer)
     bres = phase_blocks_kernel(timer)
+    gres = phase_groups_kernel(timer)
     mres = phase_matcher_kernels(timer)
     runs = phase_ba_main()
+    group_runs = phase_ba_groups()
     phase_bucketed()
     n_blocks, c_pcg = phase_ba_blocks()
     phase_ba_entry()
@@ -4653,6 +4891,7 @@ def main():
         shape="notre_dame f32", trafalgar_ms=tra["ms"],
         trafalgar_plain_ms=tra["plain_ms"],
         trafalgar_bound_ms=tra["bound_ms"]))
+    summary += groups_summary(gres, group_runs)
     for name, shape, line, launches, extra in (
             ("top2_match", "frontend", 120, n_batched,
              dict(incremental_launches=n_incr,

@@ -5,7 +5,11 @@ solver options of the benchmark's two cells (benchmark/configs): CG
 fixed at cg_iterations products (cg_tol 0, cg_eta 0), with and without
 the fused-matvec plan. On the CPU the counts and ranges; on the card
 (marked cuda) every synchronizing call that torch's sync debug mode
-reports is a counted one.
+reports is a counted one. And the routes of S·v: the shared group's
+kernels (pass1, pass2) and the grouped ones (pass1_groups,
+pass2_groups), which the final cell takes on the card; on the CPU the
+final cases add the CPU to group_kernels_eligible's devices, so that the
+grouped wrappers' plain versions run where the card runs the kernels.
 
 On the card: python -m pytest --noconftest -o addopts="" -m cuda
 tests/test_torch_ba_syncs.py -q -s
@@ -66,6 +70,26 @@ def _case(cell, plan, device="cpu", iterations=3, n_cams=8, n_pts=200):
     return p, opts
 
 
+def _groups_on_cpu(monkeypatch):
+    """group_kernels_eligible, the solver's own rule, with the CPU among
+    its devices: the CPU then takes the grouped route (the wrappers' plain
+    versions, which count no launch) as the card takes the kernels."""
+    monkeypatch.setattr(ba, "GROUP_KERNEL_DEVICES", ("cuda", "cpu"))
+
+
+def _spy(monkeypatch, calls, name, refuse=False):
+    """Wrap fused_matvec.<name> to record its calls' arguments (or to
+    raise, with refuse)."""
+    f = getattr(ba.fm, name)
+
+    def wrapped(*args, **kwargs):
+        if refuse:
+            raise AssertionError(f"{name} called")
+        calls.append((name, args, kwargs))
+        return f(*args, **kwargs)
+    monkeypatch.setattr(ba.fm, name, wrapped)
+
+
 def _syncs():
     return {k[len("sync."):]: v for k, v in dispatch_counts().items()
             if k.startswith("sync.") and v}
@@ -75,16 +99,20 @@ def _syncs():
                                        ("final", False), ("dense", False)],
                          ids=["venice-kernels", "venice-plain", "final",
                               "dense"])
-def test_sync_counts_per_solve_and_iteration(cell, plan):
+def test_sync_counts_per_solve_and_iteration(cell, plan, monkeypatch):
     """Two solves: per LM iteration one CG stopping test per product, one
     step read and four uploads (the active intrinsics slots, two for the
     Hpp diagonal's setitem, CG's guard); per solve two uploads (the active
-    slots' index, lambda) and, on the kernel path, the index check's two
+    slots' index, lambda) and, on the kernel paths, the index check's two
     reads, the point order and bincount's two reads for each of the
-    camera and point segments. The dense solver runs no CG: its pairs of
-    observations cost one read a solve."""
+    camera and point segments, and for the group segments on the grouped
+    path (final). The dense solver runs no CG: its pairs of observations
+    cost one read a solve."""
+    if cell == "final":
+        _groups_on_cpu(monkeypatch)
     prob, opts = _case(cell, plan)
     assert ba.kernels_eligible(prob, opts) == (cell == "venice" and plan)
+    assert ba.group_kernels_eligible(prob, opts) == (cell == "final")
     reset_dispatch_counts()
     iters = sum(ba.bundle_adjust(prob, opts)[1].num_iterations
                 for _ in range(2))
@@ -97,9 +125,13 @@ def test_sync_counts_per_solve_and_iteration(cell, plan):
         want.update(point_pairs=2)
     if ba.kernels_eligible(prob, opts):
         want.update(index_check=2 * 2, point_order=2, segment_count=2 * 4)
+    if ba.group_kernels_eligible(prob, opts):
+        want.update(index_check=2 * 2, point_order=2, segment_count=2 * 6)
     assert _syncs() == want
     c = dispatch_counts()
     assert c.get("schur_matvec", 0) == iters * cg
+    # the plain versions on the CPU launch nothing
+    assert not any(k.startswith(("schur_pass", "ba_blocks")) for k in c)
     assert c.get("lm.accepted", 0) + c.get("lm.rejected", 0) == iters
 
 
@@ -118,10 +150,13 @@ def test_rejected_steps_are_the_negative_trace_entries():
 
 
 @pytest.mark.parametrize("cell", ["venice", "final"])
-def test_ranges_do_not_nest_and_sync_ranges_hold_only_reads(cell):
+def test_ranges_do_not_nest_and_sync_ranges_hold_only_reads(cell,
+                                                            monkeypatch):
     """Under torch.profiler no two ba.* ranges overlap (ba.sync closes the
     phase around each read), and each ba.sync range holds the read's own
     operators and none of the solve's."""
+    if cell == "final":
+        _groups_on_cpu(monkeypatch)
     prob, opts = _case(cell, cell == "venice", iterations=2)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         reset_dispatch_counts()
@@ -159,6 +194,79 @@ def test_no_range_without_a_profiler(monkeypatch):
     assert _syncs()["cg_stop"] == opts.cg_iterations
 
 
+def test_shared_group_route_calls_pass1_pass2_with_the_indices(monkeypatch):
+    """One intrinsics group and the plan (venice): every product calls
+    pass1 with the point index and pass2 with the camera index, and never
+    a grouped wrapper, even with the CPU among the grouped rule's
+    devices."""
+    _groups_on_cpu(monkeypatch)
+    calls = []
+    _spy(monkeypatch, calls, "pass1")
+    _spy(monkeypatch, calls, "pass2")
+    _spy(monkeypatch, calls, "pass1_groups", refuse=True)
+    _spy(monkeypatch, calls, "pass2_groups", refuse=True)
+    prob, opts = _case("venice", True, iterations=2)
+    assert ba.kernels_eligible(prob, opts)
+    assert not ba.group_kernels_eligible(prob, opts)
+    reset_dispatch_counts()
+    ba.bundle_adjust(prob, opts)
+    n = dispatch_counts()["schur_matvec"]
+    assert [c[0] for c in calls] == ["pass1", "pass2"] * n
+    for name, args, _ in calls:
+        index = args[-1]
+        assert isinstance(index, (ba.fm.PointIndex if name == "pass1"
+                                  else ba.fm.CameraIndex))
+
+
+def test_grouped_route_matches_the_plain_route(monkeypatch):
+    """A group per camera (final): with the CPU among the grouped rule's
+    devices every product calls pass1_groups with the point index and
+    pass2_groups with the camera and group indices, and the solve gives
+    what the plain S_matvec gives."""
+    prob, opts = _case("final", False, iterations=2)
+    assert not ba.group_kernels_eligible(prob, opts)   # CPU tensors
+    plain, plain_summary = ba.bundle_adjust(prob, opts)
+    _groups_on_cpu(monkeypatch)
+    calls = []
+    _spy(monkeypatch, calls, "pass1", refuse=True)
+    _spy(monkeypatch, calls, "pass2", refuse=True)
+    _spy(monkeypatch, calls, "pass1_groups")
+    _spy(monkeypatch, calls, "pass2_groups")
+    assert not ba.kernels_eligible(prob, opts)
+    reset_dispatch_counts()
+    out, summary = ba.bundle_adjust(prob, opts)
+    n = dispatch_counts()["schur_matvec"]
+    assert n == opts.cg_iterations * 2
+    assert [c[0] for c in calls] == ["pass1_groups", "pass2_groups"] * n
+    for name, args, _ in calls:
+        if name == "pass1_groups":
+            assert isinstance(args[-1], ba.fm.PointIndex)
+        else:
+            assert isinstance(args[-2], ba.fm.CameraIndex)
+            assert isinstance(args[-1], ba.fm.GroupIndex)
+    for a, b in ((out.extrinsics, plain.extrinsics),
+                 (out.intrinsics, plain.intrinsics),
+                 (out.points, plain.points),
+                 (summary.final_cost, plain_summary.final_cost)):
+        torch.testing.assert_close(a, b)
+
+
+def test_group_kernels_eligible_rule(monkeypatch):
+    """The grouped rule from options and shapes: more than one group, f32,
+    no mesh axis, pallas_matvec, and tensors on a device of
+    GROUP_KERNEL_DEVICES (CUDA: so never on the CPU unless it is added)."""
+    prob, opts = _case("final", False, iterations=1)
+    assert not ba.group_kernels_eligible(prob, opts)
+    _groups_on_cpu(monkeypatch)
+    assert ba.group_kernels_eligible(prob, opts)
+    _, opts1 = _case("venice", False, iterations=1)
+    for p, o in ((prob, dataclasses.replace(opts, pallas_matvec=False)),
+                 (prob, dataclasses.replace(opts, axis_name="obs")),
+                 (prob._replace(points=prob.points.double()), opts),
+                 (_case("venice", False)[0], opts1)):
+        assert not ba.group_kernels_eligible(p, o)
+
+
 def _port_line(stack):
     """file:line of the innermost frame of the port in a stack."""
     for f in reversed(stack):
@@ -171,7 +279,7 @@ def _port_line(stack):
 @pytest.mark.parametrize("cell", ["venice", "final", "dense"])
 def test_every_card_sync_is_counted(cell):
     """On the card, at the cell's options (the kernels for venice, the
-    plain path for final, the dense Schur solver with venice's other
+    grouped kernels for final, the dense Schur solver with venice's other
     options): the synchronizing calls torch's sync debug
     mode warns of during a solve are as many as the sync.* counts. Each
     warning is placed at the port's line that made it."""
@@ -180,6 +288,7 @@ def test_every_card_sync_is_counted(cell):
     prob, opts = _case(cell, cell == "venice", device="cuda", n_cams=40,
                        n_pts=2000)
     assert ba.kernels_eligible(prob, opts) == (cell == "venice")
+    assert ba.group_kernels_eligible(prob, opts) == (cell == "final")
     ba.bundle_adjust(prob, dataclasses.replace(opts, max_iterations=1))
     torch.cuda.synchronize()
     reset_dispatch_counts()
@@ -203,3 +312,11 @@ def test_every_card_sync_is_counted(cell):
           f"{counted} counted {_syncs()}; at {dict(where)}")
     assert "outside the port" not in where
     assert sum(where.values()) == counted, (dict(where), _syncs())
+    c = dispatch_counts()
+    n = c["schur_matvec"] if cell == "final" else 0
+    assert c.get("schur_pass1_groups", 0) == n
+    assert c.get("schur_pass2_groups", 0) == n
+    if cell == "final":
+        assert c.get("schur_pass1", 0) == c.get("schur_pass2", 0) == 0
+        assert c.get("ba_blocks", 0) == 0
+        assert _syncs()["segment_count"] == 6

@@ -249,3 +249,154 @@ def test_pass1_on_cpu_ignores_point_index(sorted_pts):
     u, wp = fm.pass1(*args)
     u_i, wp_i = fm.pass1(*args, fm.point_index(ids[1], Np))
     assert torch.equal(u, u_i) and torch.equal(wp, wp_i)
+
+
+# ---------------------------------------------------------------------------
+# the grouped sweeps (pass1_groups, pass2_groups): a group per observation
+
+
+def _group_case(rng, Ng, P, by_camera, M=300, Nc=9, Np=40):
+    """A problem with Ng intrinsics groups ("Nc": one per camera): the
+    group a function of the camera (by_camera) or drawn per observation,
+    so that one camera's observations fall in several groups."""
+    obs_cam, obs_pt, Jc, Ji, Jp, vc, _, zp = _rand_problem(rng, M, Nc, Np, P)
+    Ng = Nc if Ng == "Nc" else Ng
+    obs_group = (obs_cam % Ng if by_camera else
+                 rng.integers(0, Ng, M)).astype(np.int32)
+    if not by_camera:
+        assert any(len(set(obs_group[obs_cam == c])) > 1 for c in range(Nc))
+    vg = rng.normal(size=(Ng, P)).astype(np.float32)
+    return dict(obs_cam=obs_cam, obs_group=obs_group, obs_pt=obs_pt, Jc=Jc,
+                Ji=Ji, Jp=Jp, vc=vc, vg=vg, zp=zp, Nc=Nc, Np=Np, Ng=Ng)
+
+
+def _grouped_passes(c, mv):
+    """The grouped wrappers on CPU tensors (their plain versions), the
+    jacobians as (F, M) tensors of the matvec type."""
+    js = [torch.tensor(c[k].T.copy()).to(mv) for k in ("Jc", "Ji", "Jp")]
+    ids = [torch.tensor(c[k]) for k in ("obs_cam", "obs_group", "obs_pt")]
+    u, wp = fm.pass1_groups(*js, *ids, torch.tensor(c["vc"]),
+                            torch.tensor(c["vg"]), c["Np"])
+    yc, yg = fm.pass2_groups(*js, *ids, u, torch.tensor(c["zp"]), c["Nc"],
+                             c["Ng"])
+    return u, wp, yc, yg
+
+
+GROUP_CASES = pytest.mark.parametrize(
+    "Ng,P,bf16,by_camera",
+    [(Ng, P, bf16, by) for Ng in (2, "Nc") for P in (1, 3)
+     for bf16 in (False, True) for by in (True, False)],
+    ids=lambda v: {True: "T", False: "F"}.get(v, str(v)))
+
+
+@GROUP_CASES
+def test_grouped_passes_match_dense_algebra(Ng, P, bf16, by_camera):
+    """The grouped plain versions against the Schur product written
+    densely in f64 on the matvec type's values: u = Jc·vc[cam] +
+    Ji·vg[group], wp = Σ Jpᵀu, d = u − Jp·zp[pt], yc = Σ Jcᵀd per camera,
+    yg = Σ Jiᵀd per group. bf16 also rounds u, zp[pt] and d on the way."""
+    c = _group_case(np.random.default_rng(21), Ng, P, by_camera)
+    mv = torch.bfloat16 if bf16 else torch.float32
+    u, wp, yc, yg = _grouped_passes(c, mv)
+    M = c["obs_cam"].shape[0]
+    assert u.shape == (2, M) and wp.shape == (c["Np"], 3)
+    assert yc.shape == (c["Nc"], 6) and yg.shape == (c["Ng"], P)
+
+    def val(x):
+        return torch.tensor(x).to(mv).double().numpy()
+
+    Jc3, Ji3, Jp3 = (val(c[k]).reshape(M, 2, -1) for k in ("Jc", "Ji", "Jp"))
+    cam, grp, pt = c["obs_cam"], c["obs_group"], c["obs_pt"]
+    u_ref = (np.einsum("mki,mi->mk", Jc3, val(c["vc"])[cam]) +
+             np.einsum("mkp,mp->mk", Ji3, val(c["vg"])[grp]))
+    wp_ref = np.zeros((c["Np"], 3))
+    np.add.at(wp_ref, pt, np.einsum("mkc,mk->mc", Jp3, u_ref))
+    d = u_ref - np.einsum("mkc,mc->mk", Jp3, val(c["zp"])[pt])
+    yc_ref = np.zeros((c["Nc"], 6))
+    np.add.at(yc_ref, cam, np.einsum("mki,mk->mi", Jc3, d))
+    yg_ref = np.zeros((c["Ng"], P))
+    np.add.at(yg_ref, grp, np.einsum("mkp,mk->mp", Ji3, d))
+    for got, ref in ((u.T, u_ref), (wp, wp_ref), (yc, yc_ref),
+                     (yg, yg_ref)):
+        if bf16:
+            _close(got, ref, None, True)
+        else:
+            np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4,
+                                       atol=1e-4)
+
+
+@GROUP_CASES
+def test_grouped_passes_match_plain_s_matvec(Ng, P, bf16, by_camera):
+    """The grouped plain versions against the solver's plain S_matvec
+    (bundle_adjustment.py: einsums on (M, 2, k) views, gathers and
+    index_add_, with its rounding points), given the same zp."""
+    c = _group_case(np.random.default_rng(22), Ng, P, by_camera)
+    mv = torch.bfloat16 if bf16 else torch.float32
+    u, wp, yc, yg = _grouped_passes(c, mv)
+    f32 = torch.float32
+    M = c["obs_cam"].shape[0]
+    Jc3m, Ji3m, Jp3m = (torch.tensor(c[k]).to(mv).to(f32).reshape(M, 2, -1)
+                        for k in ("Jc", "Ji", "Jp"))
+    cam, grp, pt = (torch.tensor(c[k]).long()
+                    for k in ("obs_cam", "obs_group", "obs_pt"))
+    vc, vg, zp = (torch.tensor(c[k]) for k in ("vc", "vg", "zp"))
+    u_ref = torch.einsum("mki,mi->mk", Jc3m, fm.round_mv(vc[cam], mv))
+    u_ref = u_ref + torch.einsum("mkp,mp->mk", Ji3m,
+                                 fm.round_mv(vg, mv)[grp])
+    wp_ref = torch.zeros((c["Np"], 3)).index_add_(
+        0, pt, torch.einsum("mka,mk->ma", Jp3m, fm.round_mv(u_ref, mv)))
+    u2 = torch.einsum("mkj,mj->mk", Jp3m, fm.round_mv(zp[pt], mv))
+    d = fm.round_mv(u_ref - u2, mv)
+    yc_ref = torch.zeros((c["Nc"], 6)).index_add_(
+        0, cam, torch.einsum("mki,mk->mi", Jc3m, d))
+    yg_ref = torch.zeros((c["Ng"], P)).index_add_(
+        0, grp, torch.einsum("mkp,mk->mp", Ji3m, d))
+    # pass 2 from the reference's u, as the solver chains the two
+    ids = [torch.tensor(c[k]) for k in ("obs_cam", "obs_group", "obs_pt")]
+    js = [torch.tensor(c[k].T.copy()).to(mv) for k in ("Jc", "Ji", "Jp")]
+    yc_u, yg_u = fm.pass2_groups(*js, *ids, u_ref.T.contiguous(), zp,
+                                 c["Nc"], c["Ng"])
+    for got, ref in ((u.T, u_ref), (wp, wp_ref), (yc_u, yc_ref),
+                     (yg_u, yg_ref)):
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+    # and chained from its own u: one bf16 ulp of a rounded u at most
+    for got, ref in ((yc, yc_ref), (yg, yg_ref)):
+        _close(got, ref, 1e-5, bf16)
+
+
+@pytest.mark.parametrize("Ng", [1, 5, 40])
+def test_group_index_segments_match_index_add(Ng):
+    """The group index: order a stable argsort of obs_group, start its
+    segment starts (groups without observations give empty segments), no
+    workspace off the card; the plain segmented sum over it equals
+    index_add_ to float32 rounding."""
+    rng = np.random.default_rng(13)
+    M, P = 1000, 3
+    obs_group = rng.integers(0, Ng, M).astype(np.int32)
+    if Ng > 3:
+        obs_group[obs_group == 3] = 2      # group 3 has no observation
+    gi = fm.group_index(torch.tensor(obs_group), Ng, P)
+    assert gi.order.dtype == gi.start.dtype == torch.int32
+    assert gi.g_work is None
+    assert (gi.order.numpy() == np.argsort(obs_group, kind="stable")).all()
+    assert gi.start.numpy().tolist() == [0] + np.cumsum(
+        np.bincount(obs_group, minlength=Ng)).tolist()
+    y = torch.tensor(rng.normal(size=(M, P)), dtype=torch.float32)
+    ref = torch.zeros((Ng, P)).index_add_(0, torch.tensor(obs_group).long(),
+                                          y)
+    got = fm._segment_sums(y, gi.order, gi.start)
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def test_grouped_wrappers_on_other_device_raise():
+    """A tensor that is neither on the CPU nor on CUDA is refused, not
+    sent down the plain path."""
+    M, P = 32, 3
+    j = [torch.zeros(F, M, device="meta") for F in (12, 2 * P, 6)]
+    ids = torch.zeros(M, dtype=torch.int32, device="meta")
+    with pytest.raises(RuntimeError):
+        fm.pass1_groups(*j, ids, ids, ids, torch.zeros(3, 6, device="meta"),
+                        torch.zeros(2, P, device="meta"), 4)
+    with pytest.raises(RuntimeError):
+        fm.pass2_groups(*j, ids, ids, ids, torch.zeros(2, M, device="meta"),
+                        torch.zeros(4, 3, device="meta"), 3, 2)

@@ -1,5 +1,6 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
-the Schur-matvec passes (csrc/schur_matvec.cu, sfm/ba/fused_matvec.py),
+the Schur-matvec passes (csrc/schur_matvec.cu, sfm/ba/fused_matvec.py)
+and their grouped twins (csrc/schur_groups.cu),
 the normal-equation blocks sweep (csrc/ba_blocks.cu, fused_matvec.blocks)
 and the top-2 matcher (csrc/top2_match.cu, matching/fused_matcher.py).
 
@@ -147,6 +148,128 @@ def test_wrapper_rejects_bad_inputs_on_card():
         fm.pass2(*js, oc, op, u, zp, Nc, fm.camera_index(oc.cpu(), Nc))
     with pytest.raises(ValueError):
         fm.pass2(*js, oc, op, u, zp, Nc + 1, fm.camera_index(oc, Nc))
+
+
+def _group_inputs(rng, M, Nc, Np, P, sorted_pts, dtype, groups):
+    """_inputs with intrinsics groups: "cam" one per camera (obs_group =
+    obs_cam), 2 (a function of the camera), or "obs" (drawn per
+    observation, so a camera's observations fall in several groups)."""
+    x = _inputs(rng, M, Nc, Np, P, sorted_pts, dtype)
+    oc = x["ids"][0]
+    if groups == "obs":
+        Ng = 7
+        og = torch.tensor(rng.integers(0, Ng, M), dtype=torch.int32,
+                          device="cuda")
+    else:
+        Ng = Nc if groups == "cam" else groups
+        og = (oc % Ng).contiguous()
+    x["Ng"] = Ng
+    x["ids"] = (oc, og, x["ids"][1])
+    x["vg"] = torch.tensor(rng.normal(size=(Ng, P)), dtype=torch.float32,
+                           device="cuda")
+    x["index"] = (fm.point_index(x["ids"][2], Np),
+                  fm.camera_index(oc, Nc), fm.group_index(og, Ng, P))
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sorted_pts", [True, False],
+                         ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("groups", ["cam", 2, "obs"])
+def test_grouped_kernels_match_plain_on_card(bf16, sorted_pts, P, groups):
+    """pass1_groups and pass2_groups against their plain versions, in both
+    layouts, with a group per camera, two groups, and groups that are not
+    a function of the camera. Tolerance relative to max|ref|: the
+    segments reorder the f32 sums, and under bf16 a rounded intermediate
+    may land one bf16 ulp apart."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Nc, Np = 3000, 300, 500
+    x = _group_inputs(np.random.default_rng(11), M, Nc, Np, P, sorted_pts,
+                      torch.bfloat16 if bf16 else torch.float32, groups)
+    tol = 1e-2 if bf16 else 1e-4
+    pt_index, cam_index, grp_index = x["index"]
+    Ng = x["Ng"]
+    for js in (x["js_t"], x["js_row"]):
+        reset_dispatch_counts()
+        u, wp = fm.pass1_groups(*js, *x["ids"], x["vc"], x["vg"], Np,
+                                pt_index)
+        u_ref, wp_ref = fm.pass1_groups_plain(*js, *x["ids"], x["vc"],
+                                              x["vg"], Np)
+        yc, yg = fm.pass2_groups(*js, *x["ids"], u_ref, x["zp"], Nc, Ng,
+                                 cam_index, grp_index)
+        yc_ref, yg_ref = fm.pass2_groups_plain(*js, *x["ids"], u_ref,
+                                               x["zp"], Nc, Ng)
+        torch.cuda.synchronize()
+        assert dispatch_counts() == {"schur_pass1_groups": 1,
+                                     "schur_pass2_groups": 1}
+        for got, ref in ((u, u_ref), (wp, wp_ref), (yc, yc_ref),
+                         (yg, yg_ref)):
+            assert got.shape == ref.shape
+            err = (got - ref).abs().max().item()
+            assert err <= tol * ref.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_grouped_kernels_bitwise_repeatable_on_card(bf16):
+    """The grouped kernels take no atomics: two launches on the same
+    inputs give the same bits, in both layouts, with the indices built
+    once and built anew; and with a ragged last tile (M not a multiple of
+    1024)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Nc, Np, P = 200_004, 550, 50_000, 3
+    x = _group_inputs(np.random.default_rng(17), M, Nc, Np, P, True,
+                      torch.bfloat16 if bf16 else torch.float32, "cam")
+    oc, og, op = x["ids"]
+    Ng = x["Ng"]
+    u0, _ = fm.pass1_groups_plain(*x["js_t"], *x["ids"], x["vc"], x["vg"],
+                                  Np)
+    for js in (x["js_t"], x["js_row"]):
+        runs = []
+        for index in (x["index"], x["index"],
+                      (fm.point_index(op, Np), fm.camera_index(oc, Nc),
+                       fm.group_index(og, Ng, P))):
+            runs.append(fm.pass1_groups(*js, *x["ids"], x["vc"], x["vg"],
+                                        Np, index[0]) +
+                        fm.pass2_groups(*js, *x["ids"], u0, x["zp"], Nc, Ng,
+                                        *index[1:]))
+        torch.cuda.synchronize()
+        for p, q, r in zip(*runs):
+            assert torch.equal(p, q) and torch.equal(p, r)
+
+
+@pytest.mark.cuda
+def test_grouped_wrappers_reject_bad_inputs_on_card():
+    """The grouped wrappers raise on what the kernels do not take: no
+    point index, no group index or one built off the card, a vg that is
+    not (Ng, P), int64 group ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Nc, Np, P = 64, 4, 8, 3
+    x = _group_inputs(np.random.default_rng(0), M, Nc, Np, P, True,
+                      torch.float32, "cam")
+    js, (oc, og, op) = x["js_t"], x["ids"]
+    pt_index, cam_index, grp_index = x["index"]
+    vc, vg, zp = x["vc"], x["vg"], x["zp"]
+    with pytest.raises(ValueError):
+        fm.pass1_groups(*js, oc, og, op, vc, vg, Np)
+    with pytest.raises(ValueError):
+        fm.pass1_groups(*js, oc, og, op, vc, vg[:, :2], Np, pt_index)
+    with pytest.raises(ValueError):
+        fm.pass1_groups(*js, oc, og.long(), op, vc, vg, Np, pt_index)
+    u = vc.new_zeros(2, M)
+    with pytest.raises(ValueError):
+        fm.pass2_groups(*js, oc, og, op, u, zp, Nc, Nc, cam_index)
+    with pytest.raises(ValueError):
+        fm.pass2_groups(*js, oc, og, op, u, zp, Nc, Nc, cam_index,
+                        fm.group_index(og.cpu(), Nc, P))
+    with pytest.raises(ValueError):
+        fm.pass2_groups(*js, oc, og, op, u, zp, Nc, Nc + 1, cam_index,
+                        grp_index)
 
 
 def _blocks_inputs(rng, M, Nc, Np, P, sorted_pts):

@@ -51,6 +51,19 @@ _SIGNATURES = {"ba_blocks": {
     [_LL, _I, _I, _I, _P],
     "schur_pass2_bf16": [_P, _P, _P] + _STRIDES + [_P] * 9 +
     [_LL, _I, _I, _I, _P],
+}, "schur_groups": {
+    # jc, ji, jp, 6 strides, layout, obs_cam, obs_group, pt_order,
+    # pt_start, vc, vg, u, wp, M, P, Np, stream
+    "schur_groups_pass1_f32": [_P, _P, _P] + _STRIDES + [_I] + [_P] * 8 +
+    [_LL, _I, _I, _P],
+    "schur_groups_pass1_bf16": [_P, _P, _P] + _STRIDES + [_I] + [_P] * 8 +
+    [_LL, _I, _I, _P],
+    # jc, ji, jp, 6 strides, obs_pt, u, zp, cam_order, cam_start,
+    # grp_order, grp_start, y_work, g_work, yc, yg, M, P, Nc, Ng, stream
+    "schur_groups_pass2_f32": [_P, _P, _P] + _STRIDES + [_P] * 11 +
+    [_LL, _I, _I, _I, _P],
+    "schur_groups_pass2_bf16": [_P, _P, _P] + _STRIDES + [_P] * 11 +
+    [_LL, _I, _I, _I, _P],
 }, "top2_match": {
     # d1, d2, n2, best, second, idx, B, M, N, D, stream
     "top2_match_f32": [_P] * 6 + [_I] * 4 + [_P],

@@ -11,8 +11,10 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
     S·v is two sweeps over the observations. With
     `BAOptions.pallas_matvec` (and Ng == 1, a plan attached by
     add_pallas_matvec_plan, f32 parameters) the sweeps are the CUDA
-    kernels of fused_matvec.py; otherwise S_matvec below computes them
-    with gathers, einsums and index_add_.
+    kernels of fused_matvec.py; with Ng > 1 (f32 parameters on a CUDA
+    device, no mesh axis) its grouped kernels, which read each
+    observation's group; otherwise S_matvec below computes them with
+    gathers, einsums and index_add_.
   * Preconditioner: SCHUR_JACOBI (exact 6x6 diagonal blocks of S) or
     block_diag.
   * The undamped normal-equation blocks (make_blocks) are one sweep
@@ -152,8 +154,8 @@ class BAOptions:
     # "schur_jacobi" or "block_diag"
     preconditioner: str = "schur_jacobi"
     # run S·v through the CUDA kernels when eligible (Ng == 1, plan
-    # attached, f32 parameters); on CPU tensors the kernels' plain
-    # versions run
+    # attached, f32 parameters; on CPU tensors the kernels' plain versions
+    # run), or through the grouped kernels (group_kernels_eligible)
     pallas_matvec: bool = False
     # kernel jacobian layout: (F, M) copies made once per damped solve
     # (True) or strided views of the (M, F) arrays (False)
@@ -300,6 +302,22 @@ def kernels_eligible(prob: BAProblem, opts: BAOptions) -> bool:
             prob.points.dtype == torch.float32)
 
 
+# the device types on which group_kernels_eligible takes the grouped
+# route; elsewhere S·v stays on the plain S_matvec
+GROUP_KERNEL_DEVICES = ("cuda",)
+
+
+def group_kernels_eligible(prob: BAProblem, opts: BAOptions) -> bool:
+    """Whether bundle_adjust runs S·v through the grouped kernels
+    (fused_matvec.pass1_groups, pass2_groups), decided from options and
+    shapes alone: more than one intrinsics group, f32 parameters on a
+    device of GROUP_KERNEL_DEVICES, no mesh axis. No plan is needed."""
+    return (opts.pallas_matvec and prob.intrinsics.shape[0] > 1 and
+            prob.points.dtype == torch.float32 and
+            opts.axis_name is None and
+            prob.points.device.type in GROUP_KERNEL_DEVICES)
+
+
 def blocks_kernel_eligible(prob: BAProblem, opts: BAOptions) -> bool:
     """Whether make_blocks runs through the ba_blocks kernel: the matvec
     kernels are eligible and the options ask for it (JAX's rule)."""
@@ -384,24 +402,33 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         return torch.einsum("mkp,mp->mk", Ji3, vg[obs_group])
 
     use_kernels = kernels_eligible(prob, opts)
+    use_group_kernels = group_kernels_eligible(prob, opts)
     dense = opts.linear_solver == "dense_schur"
     # the dense solver's observation pairs: fixed by pt_idx_map, so found
     # once per solve
     obs_pairs = _point_obs_pairs(prob) if dense else None
-    cam_index = pt_index = None
-    if use_kernels:
+    cam_index = pt_index = grp_index = None
+    if use_group_kernels:
+        obs_group = obs_group.to(torch.int32).contiguous()
+    if use_kernels or use_group_kernels:
+        # the ids the kernels read, with their bounds
+        ids = [(obs_cam, Nc), (obs_pt, Np)]
+        if use_group_kernels:
+            ids.append((obs_group, Ng))
         if M:
             # the kernels trust their indices: check them once per solve
-            lo = torch.stack([obs_cam.min(), obs_pt.min()])
-            hi = torch.stack([obs_cam.max(), obs_pt.max()])
+            lo = torch.stack([x.min() for x, _ in ids])
+            hi = torch.stack([x.max() for x, _ in ids])
             with host_sync("index_check", reads=2):
-                (cmin, pmin), (cmax, pmax) = lo.tolist(), hi.tolist()
-            if min(cmin, pmin) < 0 or cmax >= Nc or pmax >= Np:
+                lo, hi = lo.tolist(), hi.tolist()
+            if min(lo) < 0 or any(h >= n for h, (_, n) in zip(hi, ids)):
                 raise ValueError("observation indices out of range")
-        # the kernels' camera and point segments, fixed by obs_cam and
-        # obs_pt: once per solve
+        # the kernels' camera, point and group segments, fixed by obs_cam,
+        # obs_pt and obs_group: once per solve
         cam_index = fm.camera_index(obs_cam, Nc)
         pt_index = fm.point_index(obs_pt, Np)
+        if use_group_kernels:
+            grp_index = fm.group_index(obs_group, Ng, P)
     blocks_fn = (functools.partial(fm.blocks, cam_index=cam_index,
                                    pt_index=pt_index)
                  if blocks_kernel_eligible(prob, opts) else fm.blocks_plain)
@@ -505,7 +532,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         # (products in the parameters' type, f32 sums)
         Jc_mv, Ji_mv, Jp_mv = (x.to(mv) for x in (Jc12, JiP, Jp6))
 
-        if use_kernels:
+        if use_kernels or use_group_kernels:
             if opts.pallas_transposed:
                 # one transpose per damped solve; every CG iteration
                 # then reads (F, M) rows coalesced along M
@@ -514,6 +541,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             else:
                 jc_k, ji_k, jp_k = Jc_mv.T, Ji_mv.T, Jp_mv.T
 
+        if use_kernels:
             def S_matvec(vc, vg):
                 count_dispatch("schur_matvec")
                 u, wp = fm.pass1(jc_k, ji_k, jp_k, obs_cam, obs_pt,
@@ -527,6 +555,18 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
                 g2 = yg2.reshape(2, P, 2)
                 yc = _psum(yc)
                 yg = _psum((g2[0, :, 0] + g2[1, :, 1])[None])
+                return yc + diag_c * vc, yg + diag_g * vg
+        elif use_group_kernels:
+            def S_matvec(vc, vg):
+                """S·v through the grouped kernels (one device, no psum)."""
+                count_dispatch("schur_matvec")
+                u, wp = fm.pass1_groups(jc_k, ji_k, jp_k, obs_cam,
+                                        obs_group, obs_pt, vc.contiguous(),
+                                        vg.contiguous(), Np, pt_index)
+                zp = _mat3vec(Hpp_inv, wp)
+                yc, yg = fm.pass2_groups(jc_k, ji_k, jp_k, obs_cam,
+                                         obs_group, obs_pt, u, zp, Nc, Ng,
+                                         cam_index, grp_index)
                 return yc + diag_c * vc, yg + diag_g * vg
         else:
             Jc3m = Jc_mv.to(dtype).reshape(M, 2, 6)

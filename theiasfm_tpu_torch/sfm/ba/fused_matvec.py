@@ -29,6 +29,21 @@ csrc/schur_matvec.cu (csrc/ba_blocks.cu for blocks), or raises. There is
 no fallback from one to the other. Each CUDA launch adds one to its count
 in utils/dispatch.py ("schur_pass1", "schur_pass2", "ba_blocks").
 
+Where the observations carry more than one intrinsics group, the same
+product runs through pass1_groups and pass2_groups (csrc/schur_groups.cu),
+with vg and yg (Ng, P) tables instead of the shared group's (P,) and
+(2P, 2):
+
+    u, wp  = pass1_groups(jc, ji, jp, obs_cam, obs_group, obs_pt, vc, vg,
+                          n_pts, pt_index)
+    yc, yg = pass2_groups(jc, ji, jp, obs_cam, obs_group, obs_pt, u, zp,
+                          n_cams, n_groups, cam_index, grp_index)
+
+grp_index = group_index(obs_group, n_groups, P) is the group index (the
+observations in group order, each group's segment and, on CUDA, stage A's
+(M, P) rows), built once per solve like the other two. Their launches
+count under "schur_pass1_groups" and "schur_pass2_groups".
+
 The kernels use the global point ids directly: the TPU's tile plan
 (tile_p0, local_pt, the point window) exists because VMEM could not
 hold a whole point table, and a GPU block reads zp[obs_pt] from device
@@ -113,19 +128,19 @@ def round_mv(x, mv_dtype):
     return x if mv_dtype == x.dtype else x.to(mv_dtype).to(x.dtype)
 
 
-def pass1_plain(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts):
-    """u = Jc·vc[cam] + Ji·vg (2, M) f32; wp[pt] += Jpᵀ round(u)."""
+def _pass1_sweep(jc, ji, jp, obs_cam, obs_pt, vc, vg_m, group_eq, n_pts):
+    """u = Jc·round(vc[cam]) + Ji·vg_m (2, M) f32, the group term an
+    einsum of ji (2, P, M) and vg_m by group_eq; wp[pt] += Jpᵀ round(u)."""
     mv = jc.dtype
     M = jc.shape[1]
     P = ji.shape[0] // 2
     f32 = torch.float32
     vc_m = round_mv(vc[obs_cam], mv)                       # (M, 6)
-    vg_m = round_mv(vg, mv)                                # (P,)
     jc3 = jc.to(f32).reshape(2, 6, M)
     ji3 = ji.to(f32).reshape(2, P, M)
     # contiguous like the kernel's u, so either feeds either pass 2
     u = (torch.einsum("kim,mi->km", jc3, vc_m) +
-         torch.einsum("kpm,p->km", ji3, vg_m)).contiguous()
+         torch.einsum(group_eq, ji3, vg_m)).contiguous()
     um = round_mv(u, mv)
     t = torch.einsum("kcm,km->mc", jp.to(f32).reshape(2, 3, M), um)
     wp = torch.zeros((n_pts, 3), dtype=f32, device=jc.device)
@@ -133,9 +148,15 @@ def pass1_plain(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts):
     return u, wp
 
 
-def pass2_plain(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams):
-    """d = round(u − Jp·round(zp[pt])); yc[cam] += Jcᵀd (Nc, 6);
-    yg = Ji dᵀ (2P, 2); all f32."""
+def pass1_plain(jc, ji, jp, obs_cam, obs_pt, vc, vg, n_pts):
+    """u = Jc·vc[cam] + Ji·vg (2, M) f32; wp[pt] += Jpᵀ round(u)."""
+    return _pass1_sweep(jc, ji, jp, obs_cam, obs_pt, vc,
+                        round_mv(vg, jc.dtype), "kpm,p->km", n_pts)
+
+
+def _pass2_residual(jc, jp, obs_cam, obs_pt, u, zp, n_cams):
+    """Pass 2's d = round(u − Jp·round(zp[pt])) (2, M) and yc[cam] +=
+    Jcᵀd (Nc, 6), f32."""
     mv = jc.dtype
     M = jc.shape[1]
     f32 = torch.float32
@@ -145,7 +166,38 @@ def pass2_plain(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams):
     ycb = torch.einsum("kim,km->mi", jc.to(f32).reshape(2, 6, M), dm)
     yc = torch.zeros((n_cams, 6), dtype=f32, device=jc.device)
     yc.index_add_(0, obs_cam, ycb)
-    yg = ji.to(f32) @ dm.T
+    return dm, yc
+
+
+def pass2_plain(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams):
+    """d = round(u − Jp·round(zp[pt])); yc[cam] += Jcᵀd (Nc, 6);
+    yg = Ji dᵀ (2P, 2); all f32."""
+    dm, yc = _pass2_residual(jc, jp, obs_cam, obs_pt, u, zp, n_cams)
+    yg = ji.to(torch.float32) @ dm.T
+    return yc, yg
+
+
+def pass1_groups_plain(jc, ji, jp, obs_cam, obs_group, obs_pt, vc, vg,
+                       n_pts):
+    """pass1_plain with a group per observation: u = Jc·vc[cam] +
+    Ji·vg[group] (2, M) f32, vg (Ng, P); wp[pt] += Jpᵀ round(u)."""
+    return _pass1_sweep(jc, ji, jp, obs_cam, obs_pt, vc,
+                        round_mv(vg[obs_group], jc.dtype), "kpm,mp->km",
+                        n_pts)
+
+
+def pass2_groups_plain(jc, ji, jp, obs_cam, obs_group, obs_pt, u, zp,
+                       n_cams, n_groups):
+    """pass2_plain with a group per observation: d = round(u −
+    Jp·round(zp[pt])); yc[cam] += Jcᵀd (Nc, 6); yg[group] += Jiᵀd
+    (Ng, P); all f32."""
+    dm, yc = _pass2_residual(jc, jp, obs_cam, obs_pt, u, zp, n_cams)
+    M = jc.shape[1]
+    P = ji.shape[0] // 2
+    ygb = torch.einsum("kpm,km->mp", ji.to(torch.float32).reshape(2, P, M),
+                       dm)
+    yg = torch.zeros((n_groups, P), dtype=torch.float32, device=jc.device)
+    yg.index_add_(0, obs_group, ygb)
     return yc, yg
 
 
@@ -215,6 +267,28 @@ def point_index(obs_pt, n_pts):
     order = (None if is_sorted else
              torch.sort(obs_pt, stable=True).indices.to(torch.int32))
     return PointIndex(order, _segment_starts(obs_pt, n_pts))
+
+
+class GroupIndex(NamedTuple):
+    """The group index, fixed by obs_group (see group_index)."""
+    order: torch.Tensor             # (M,) int32
+    start: torch.Tensor             # (n_groups + 1,) int32
+    g_work: Optional[torch.Tensor]  # (M, P) f32 on CUDA, else None
+
+
+def group_index(obs_group, n_groups, P):
+    """pass2_groups' group index: order, the observations sorted by
+    group, stably; start, where each group's segment of order begins
+    (start[-1] = M). On a CUDA device it also holds g_work, the (M, P)
+    rows Jiᵀd that stage A writes and stage B sums over the segments, so
+    calls that share it run on one stream. On obs_group's device; two
+    host syncs (sync.segment_count)."""
+    dev = obs_group.device
+    order = torch.sort(obs_group, stable=True).indices.to(torch.int32)
+    start = _segment_starts(obs_group, n_groups)
+    g_work = (torch.empty((obs_group.shape[0], P), dtype=torch.float32,
+                          device=dev) if dev.type == "cuda" else None)
+    return GroupIndex(order, start, g_work)
 
 
 def _segment_starts(ids, n):
@@ -416,6 +490,110 @@ def pass2(jc, ji, jp, obs_cam, obs_pt, u, zp, n_cams, cam_index=None):
              torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, name)
     count_dispatch("schur_pass2")
+    return yc, yg
+
+
+def _group_segments(grp_index, jc, M, n_groups, P):
+    """The group index's (order, start, g_work), checked against the call
+    (jc's device, M observations, n_groups groups, P intrinsics)."""
+    if not isinstance(grp_index, GroupIndex) or grp_index.g_work is None:
+        raise ValueError("pass2_groups on CUDA takes grp_index=group_index("
+                         "obs_group, n_groups, P), built on the card once "
+                         "per solve")
+    order, start, g_work = grp_index
+    _check_cuda(jc, order, start, g_work)
+    _check_vec("grp_index.order", order, (M,), torch.int32)
+    _check_vec("grp_index.start", start, (n_groups + 1,), torch.int32)
+    _check_vec("grp_index.g_work", g_work, (M, P), torch.float32)
+    return order, start, g_work
+
+
+def pass1_groups(jc, ji, jp, obs_cam, obs_group, obs_pt, vc, vg, n_pts,
+                 pt_index=None):
+    """First sweep of S·v where each observation has its own intrinsics
+    group: obs_group (M,) int32, vg (Ng, P) f32. Returns (u (2, M) f32,
+    wp (n_pts, 3) f32). pt_index: point_index(obs_pt, n_pts), required on
+    CUDA, as for pass1; the CPU path ignores it. The kernel trusts the ids
+    to lie inside vc and vg (the solver checks them once per solve)."""
+    if jc.device.type == "cpu":
+        return pass1_groups_plain(jc, ji, jp, obs_cam, obs_group, obs_pt,
+                                  vc, vg, n_pts)
+    M, P = _check_jacobians(jc, ji, jp)
+    _check_cuda(jc, ji, jp, obs_cam, obs_group, obs_pt, vc, vg)
+    Nc = vc.shape[0]
+    _check_vec("obs_cam", obs_cam, (M,), torch.int32)
+    _check_vec("obs_group", obs_group, (M,), torch.int32)
+    _check_vec("obs_pt", obs_pt, (M,), torch.int32)
+    _check_vec("vc", vc, (Nc, 6), torch.float32)
+    _check_vec("vg", vg, (vg.shape[0], P), torch.float32)
+    order, start = _point_segments(pt_index, jc, M, n_pts, "pass1_groups")
+    dev = jc.device
+    u = torch.empty((2, M), dtype=torch.float32, device=dev)
+    if M == 0:
+        return u, torch.zeros((n_pts, 3), dtype=torch.float32, device=dev)
+    # the kernel writes u and wp whole
+    wp = torch.empty((n_pts, 3), dtype=torch.float32, device=dev)
+    layout = (_pass1_layout(jc, ji, jp, obs_cam, M)
+              if order is None and obs_group.data_ptr() % 16 == 0
+              else _ANY_STRIDES)
+    from ... import _kernels
+    name = f"schur_groups_pass1_{_SUFFIX[jc.dtype]}"
+    fn = getattr(_kernels.library("schur_groups"), name)
+    err = fn(jc.data_ptr(), ji.data_ptr(), jp.data_ptr(),
+             *_strides(jc, ji, jp), layout, obs_cam.data_ptr(),
+             obs_group.data_ptr(),
+             None if order is None else order.data_ptr(), start.data_ptr(),
+             vc.data_ptr(), vg.data_ptr(), u.data_ptr(), wp.data_ptr(),
+             M, P, n_pts, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    count_dispatch("schur_pass1_groups")
+    return u, wp
+
+
+def pass2_groups(jc, ji, jp, obs_cam, obs_group, obs_pt, u, zp, n_cams,
+                 n_groups, cam_index=None, grp_index=None):
+    """Second sweep of S·v where each observation has its own intrinsics
+    group. Returns (yc (n_cams, 6) f32, yg (n_groups, P) f32).
+    cam_index: camera_index(obs_cam, n_cams) and grp_index:
+    group_index(obs_group, n_groups, P), both built on the card and
+    required on CUDA, where they replace obs_cam and obs_group (a solve
+    builds them once); the CPU path ignores them."""
+    if jc.device.type == "cpu":
+        return pass2_groups_plain(jc, ji, jp, obs_cam, obs_group, obs_pt,
+                                  u, zp, n_cams, n_groups)
+    M, P = _check_jacobians(jc, ji, jp)
+    _check_cuda(jc, ji, jp, obs_pt, u, zp)
+    if isinstance(cam_index, CameraIndex) and cam_index.y_work is None:
+        raise ValueError("pass2_groups on CUDA takes the camera index "
+                         "built on the card (it holds stage A's rows)")
+    cam_order, cam_start = _camera_segments(cam_index, jc, M, n_cams,
+                                            "pass2_groups")
+    y_work = cam_index.y_work
+    _check_cuda(jc, y_work)
+    _check_vec("cam_index.y_work", y_work, (M, 6), torch.float32)
+    grp_order, grp_start, g_work = _group_segments(grp_index, jc, M,
+                                                   n_groups, P)
+    _check_vec("obs_pt", obs_pt, (M,), torch.int32)
+    _check_vec("u", u, (2, M), torch.float32)
+    _check_vec("zp", zp, (zp.shape[0], 3), torch.float32)
+    dev = jc.device
+    if M == 0:
+        return (torch.zeros((n_cams, 6), dtype=torch.float32, device=dev),
+                torch.zeros((n_groups, P), dtype=torch.float32, device=dev))
+    # stage B writes yc and yg whole; the workspaces come with the indices
+    yc = torch.empty((n_cams, 6), dtype=torch.float32, device=dev)
+    yg = torch.empty((n_groups, P), dtype=torch.float32, device=dev)
+    from ... import _kernels
+    name = f"schur_groups_pass2_{_SUFFIX[jc.dtype]}"
+    fn = getattr(_kernels.library("schur_groups"), name)
+    err = fn(jc.data_ptr(), ji.data_ptr(), jp.data_ptr(),
+             *_strides(jc, ji, jp), obs_pt.data_ptr(), u.data_ptr(),
+             zp.data_ptr(), cam_order.data_ptr(), cam_start.data_ptr(),
+             grp_order.data_ptr(), grp_start.data_ptr(), y_work.data_ptr(),
+             g_work.data_ptr(), yc.data_ptr(), yg.data_ptr(), M, P, n_cams,
+             n_groups, torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, name)
+    count_dispatch("schur_pass2_groups")
     return yc, yg
 
 
