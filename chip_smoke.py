@@ -234,10 +234,10 @@ def emit(phase, **fields):
 
 def launch_counts():
     """The launch counts of utils/dispatch since the last reset, less the
-    bundle adjuster's host reads and LM steps (sync.*, lm.*), which are
-    not launches."""
+    bundle adjuster's host reads, LM steps and dense-solver counts
+    (sync.*, lm.*, dense.*), which are not launches."""
     return {k: v for k, v in dispatch_counts().items()
-            if not k.startswith(("sync.", "lm."))}
+            if not k.startswith(("sync.", "lm.", "dense."))}
 
 
 def check(cond, msg):

@@ -38,13 +38,18 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
     all-reduced values, so the ranks take the same decisions.
   * While a profiler runs, each phase of an LM iteration is a
     `torch.profiler` range named "ba.<phase>" (linearize, blocks, rhs,
-    precond, cg, factor, backsub, inner, cost), so a profile splits the
-    iteration's device time by phase, and each host read of a device
-    value (the CG stopping rule, the LM step, the per-solve index checks,
-    the uploads of host constants) is a range "ba.sync" between them
-    (utils/dispatch.phase, host_sync). Every such read counts under
+    precond, cg, dense_corr, factor, backsub, inner, cost), so a profile
+    splits the iteration's device time by phase, and each host read of a
+    device value (the CG stopping rule, the LM step, the per-solve index
+    checks, the uploads of host constants) is a range "ba.sync" between
+    them (utils/dispatch.phase, host_sync). Every such read counts under
     "sync.<site>", profiler or not, and every LM step under "lm.accepted"
-    or "lm.rejected" (utils/dispatch).
+    or "lm.rejected" (utils/dispatch). The dense solver also counts its
+    correction builds ("dense.corr"), its factorizations
+    ("dense.factor"), the observation pairs it found ("dense.pairs", once
+    a solve) and the steps whose candidate cost is not finite, a failed
+    factorization's NaN step among them ("dense.factor_failed", read
+    with the LM step).
 
 The solver runs on the device of the problem's tensors. The JAX
 solver's workarounds for the TPU (flat one-hot einsums, gather-table
@@ -514,10 +519,12 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
                 # lambda-independent, hence exact.
                 corr = P_state
             else:
-                with phase("ba.precond"):
+                with phase("ba.dense_corr"):
+                    count_dispatch("dense.corr")
                     corr = tuple(_psum(c) for c in _dense_schur_corr(
                         prob, Jc12, JiP, Jp6, Hpp_inv, obs_pairs))
             with phase("ba.factor"):
+                count_dispatch("dense.factor")
                 dc, dg = _dense_schur_factor_solve(Hcc, Hgg, bc, bg, lam,
                                                    *corr)
             with phase("ba.backsub"):
@@ -778,11 +785,18 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         if trace is not None:
             trace[it] = torch.where(accept_t, new_cost, -new_cost)
         it += 1
-        # one host sync per LM iteration
-        flags = torch.stack([accept_t, done_t])
+        # one host sync per LM iteration; the dense solver reads with it
+        # whether the candidate cost is finite
+        flags = [accept_t, done_t]
+        if dense:
+            flags.append(~torch.isfinite(new_cost))
+        flags = torch.stack(flags)
         with host_sync("lm_step"):
-            prev_accepted, done = flags.tolist()
+            flags = flags.tolist()
+        prev_accepted, done = flags[:2]
         count_dispatch("lm.accepted" if prev_accepted else "lm.rejected")
+        if dense and flags[2]:
+            count_dispatch("dense.factor_failed")
         if prev_accepted:
             extr, intr, pts, r_cur = extr_new, intr_new, pts_new, r_new
 
@@ -798,13 +812,15 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
 
 def _point_obs_pairs(prob: BAProblem):
     """(k, l): every ordered pair of valid observations of one point
-    (k == l included), from the (Np, K) table pt_idx_map."""
+    (k == l included), from the (Np, K) table pt_idx_map; their number
+    counts under "dense.pairs"."""
     idx = prob.pt_idx_map.long()
     valid = prob.pt_idx_valid.bool()
     pairs = valid[:, :, None] & valid[:, None, :]
     # nonzero reads its number of pairs on the host
     with host_sync("point_pairs"):
         n, i, j = torch.nonzero(pairs, as_tuple=True)
+    count_dispatch("dense.pairs", n.shape[0])
     return idx[n, i], idx[n, j]
 
 
@@ -1087,8 +1103,9 @@ def _build_idx_map(indices: np.ndarray, num_segments: int,
 
 
 def add_point_obs_map(prob: BAProblem, bucket_min: int = 4) -> BAProblem:
-    """Attach the (Np, Kmax) per-point observation table (accepted for
-    parity with the JAX package; the PCG solver here does not read it)."""
+    """Attach the (Np, Kmax) per-point observation table: the dense Schur
+    solver pairs the observations of each point from it (the PCG solver
+    does not read it)."""
     Np = prob.points.shape[0]
     M = prob.obs_pt.shape[0]
     idx_map, valid = _build_idx_map(
@@ -1194,11 +1211,13 @@ def bundle_adjust_host_f64(prob: BAProblem, opts: BAOptions):
 
 
 def bundle_adjust_bucketed(prob: BAProblem, opts: BAOptions):
-    """Pad to buckets (sorted by point), attach the fused-matvec plan
-    when the options ask for the kernels and the padded problem is
+    """Pad to buckets (sorted by point), attach the point-observation map
+    when the options ask for the dense Schur solver and the fused-matvec
+    plan when they ask for the kernels and the padded problem is
     eligible, solve, and slice back."""
     Nc, Np = prob.extrinsics.shape[0], prob.points.shape[0]
-    padded = pad_ba_problem(prob)
+    padded = pad_ba_problem(
+        prob, build_point_obs_map=opts.linear_solver == "dense_schur")
     opts = dataclasses.replace(opts, point_indices_sorted=True)
     if (opts.pallas_matvec and padded.intrinsics.shape[0] == 1 and
             padded.obs_cam.shape[0] % 1024 == 0):

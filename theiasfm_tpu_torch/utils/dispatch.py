@@ -6,10 +6,11 @@ where it launches its kernel (never on the plain CPU path), and the
 bundle adjuster counts its Schur products S·v under "schur_matvec".
 The bundle adjuster also counts each host read of a device value under
 "sync.<site>" (host_sync, below: on the card each such read waits for
-the device) and each LM step under "lm.accepted" or "lm.rejected". A
-run resets the counts, drives the solver, and reads them back to show
-that the path really went through the kernels and how often the host
-waited.
+the device) and each LM step under "lm.accepted" or "lm.rejected"; its
+dense Schur solver counts its correction builds, factorizations, failed
+steps and observation pairs under "dense.<what>". A run resets the
+counts, drives the solver, and reads them back to show that the path
+really went through the kernels and how often the host waited.
 
 phase and host_sync are the bundle adjuster's profiler ranges. While a
 profiler runs, each phase of an LM iteration is a range of its own name
