@@ -13,6 +13,8 @@ main paths:
 * the grouped Schur kernels (one intrinsics group per observation) at
   BAL Final's shapes, and the solve above with a group per camera
   through them (`groups_kernel`, `ba_groups`);
+* the dense Schur solver's correction build (csrc/dense_corr.cu) against
+  its plain build at BAL Dubrovnik-356's shapes (`dense_corr_kernel`);
 * the rest of the bundle adjuster at the same scale: `pcg_fast_pblocks`
   (make_blocks through the ba_blocks kernel), the reconstruction-level
   entry points on a Reconstruction built view by view, the dense-Schur
@@ -140,6 +142,7 @@ from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
                                        bundle_adjust_track,
                                        bundle_adjust_view)
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
+from theiasfm_tpu_torch.sfm.ba import dense_corr as dcorr
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as gvm
 from theiasfm_tpu_torch.parallel import (make_mesh,
@@ -221,6 +224,10 @@ GROUPS_SOURCE = "theiasfm_tpu_torch/csrc/schur_groups.cu"
 # observations, padded to a multiple of 512 as the benchmark pads them;
 # one intrinsics group per camera, P = 3 (focal, k1, k2)
 FINAL_NC, FINAL_NP, FINAL_OBS, FINAL_P = 13_682, 4_456_117, 28_987_644, 3
+DENSE_SOURCE = "theiasfm_tpu_torch/csrc/dense_corr.cu"
+# BAL Dubrovnik-356 (benchmark/configs/bal_dubrovnik356_exact.json):
+# cameras, points, observations; a group per camera, P = 3
+DUBROVNIK = (356, 226_730, 1_255_268)
 
 
 T0 = time.perf_counter()
@@ -510,6 +517,118 @@ def groups_summary(gres, counts):
             groups_per_observation_ms=obs["ms"],
             groups_per_observation_plain_ms=obs["plain_ms"]))
     return out
+
+
+def _dubrovnik_problem(g):
+    """A problem of Dubrovnik-356's counts, dealt as the benchmark deals
+    them (each track 2 observations and a uniform share of the rest, its
+    cameras distinct), a group per camera, with random f32 jacobians and
+    the Hpp^-1 they give: (BAProblem with the point map, Jc12, JiP, Jp6,
+    Hpp_inv)."""
+    Nc, Np, M = DUBROVNIK
+    P = FINAL_P
+    dev = "cuda"
+    lengths = 2 + torch.bincount(
+        torch.randint(0, Np, (M - 2 * Np,), device=dev, generator=g),
+        minlength=Np)
+    obs_pt = torch.repeat_interleave(torch.arange(Np, device=dev), lengths)
+    rank = (torch.arange(M, device=dev) -
+            (torch.cumsum(lengths, 0) - lengths)[obs_pt])
+    # odd steps below 89 are prime to 356 = 4 x 89: a track's cameras differ
+    base = torch.randint(0, Nc, (Np,), device=dev, generator=g)
+    step = 1 + 2 * torch.randint(0, 44, (Np,), device=dev, generator=g)
+    obs_cam = ((base[obs_pt] + rank * step[obs_pt]) % Nc).int()
+    f32 = torch.float32
+    prob = ba.BAProblem(
+        extrinsics=torch.zeros((Nc, 6), dtype=f32, device=dev),
+        intrinsics=torch.zeros((Nc, 10), dtype=f32, device=dev),
+        points=torch.zeros((Np, 3), dtype=f32, device=dev),
+        obs_cam=obs_cam, obs_group=obs_cam.clone(), obs_pt=obs_pt.int(),
+        obs_pix=torch.zeros((M, 2), dtype=f32, device=dev),
+        obs_mask=torch.ones(M, dtype=torch.bool, device=dev))
+    prob = ba.add_point_obs_map(prob)
+    Jc, Ji, Jp = (torch.randn(M, F, device=dev, generator=g)
+                  for F in (12, 2 * P, 6))
+    Jp3 = Jp.reshape(M, 2, 3)
+    Hpp9 = torch.zeros((Np, 9), device=dev).index_add_(
+        0, obs_pt, torch.einsum("mka,mkb->mab", Jp3, Jp3).reshape(M, 9))
+    return prob, Jc, Ji, Jp, ba._inv3_flat(Hpp9 * 1.01, eps_diag=1e-3)
+
+
+def _dense_bytes_ops(M, Nc, Ng, Np, P, pairs):
+    """benchmark/metrics/dense_corr_roofline.py's count of one build."""
+    nbytes = (M * ((12 + 2 * P + 6) * 4 + 3 * 4) + Np * 9 * 4 +
+              4 * (36 * Nc * Nc + 2 * 6 * P * Nc * Ng + P * P * Ng * Ng))
+    return nbytes, M * (180 + 54 * P) + pairs * 6 * (36 + 6 * P + P * P)
+
+
+def phase_dense_corr_kernel(timer):
+    """The dense solver's correction build through dense_corr.corr
+    against _dense_schur_corr at Dubrovnik-356's shapes (f32): max
+    |kernel - plain| <= TOL * max |plain| for each table, two builds give
+    the same bits; the seconds of three solve-start layouts (the first
+    loads the sorts' code), the median ms of the build (L2 flushed before
+    each call, and back to back) and of the plain build, the bound, and
+    each kernel's device ms from the profiler."""
+    g = torch.Generator("cuda").manual_seed(19)
+    prob, Jc, Ji, Jp, H = _dubrovnik_problem(g)
+    Nc, Np, M = DUBROVNIK
+    P = FINAL_P
+    layout_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pairs, layout = dcorr.pair_layout(prob)
+        torch.cuda.synchronize()
+        layout_s.append(time.perf_counter() - t0)
+    check(layout is not None, "Dubrovnik's cameras span groups")
+    n = pairs[0].shape[0]
+    args = (layout, Jc, Ji, Jp, H, prob.obs_pt, Nc)
+
+    def kern():
+        return dcorr.corr(*args)
+
+    def plain():
+        return ba._dense_schur_corr(prob, Jc, Ji, Jp, H, pairs)
+    out, again = kern(), kern()
+    ref = plain()
+    torch.cuda.synchronize()
+    check(all(map(torch.equal, out, again)), "dense_corr not repeatable")
+    errs = {}
+    for key, got, want in zip(("cc", "cg", "gg", "hcg"), out, ref):
+        check(bool(torch.isfinite(got).all()), f"dense_corr {key} not finite")
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        errs[key] = err / max(scale, 1e-30)
+        check(err <= TOL[torch.float32] * scale,
+              f"dense_corr {key}: max abs err {err} > "
+              f"{TOL[torch.float32]} * {scale}")
+    del out, again, ref
+    nbytes, ops = _dense_bytes_ops(M, Nc, Nc, Np, P, n)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            kern()
+        torch.cuda.synchronize()
+    per_kernel = {}
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+        if "dense_corr" in e.key:
+            per_kernel[e.key[:60]] = us / 5 / 1e3
+    res = dict(M=M, Nc=Nc, Ng=Nc, Np=Np, P=P, pairs=n,
+               segments=layout.seg_start.shape[0] - 1,
+               chunks=layout.chunk_lo.shape[0] - 1, layout_s=layout_s,
+               rel_err=errs, tol_rel=TOL[torch.float32],
+               ms=timer.ms(kern), ms_back_to_back=timer.ms(kern, cold=False),
+               plain_ms=timer.ms(plain, reps=5),
+               bound_ms=max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               kernel_ms=per_kernel)
+    emit("dense_corr_kernel", **res)
+    return res
 
 
 def phase_kernels(timer):
@@ -1092,17 +1211,20 @@ def phase_ba_dense(c_pcg):
     _solve(prob, dataclasses.replace(opts, max_iterations=1))
     torch.cuda.reset_peak_memory_stats()
     _, s, sec, counts = _solve(prob, opts)
-    check(not counts, f"ba_dense launched {counts}")
+    builds = dispatch_counts().get("dense.corr", 0)
+    check(builds >= 1 and counts == {"dense_corr_kernel": builds},
+          f"ba_dense launched {counts} for {builds} correction builds")
     c1 = float(s.final_cost)
     rel = abs(c1 - c_pcg) / abs(c_pcg)
     emit("ba_dense", config="dense_schur_fast", tables_s=tables_s,
          initial_cost=float(s.initial_cost), final_cost=c1,
          pcg_f32_eta0_final_cost=c_pcg, rel_diff=rel, tol_rel=1e-3,
-         iterations=s.num_iterations, wall_s=sec,
+         iterations=s.num_iterations, corr_builds=builds, wall_s=sec,
          lm_iters_per_s=s.num_iterations / sec,
          rejected=int((s.cost_trace < 0).sum()),
          peak_device_gib=torch.cuda.max_memory_allocated() / 2**30)
     check(rel <= 1e-3, f"dense Schur and PCG disagree: {c1} vs {c_pcg}")
+    return builds
 
 
 def phase_ba_f64():
@@ -4830,13 +4952,14 @@ def main():
     kres = phase_kernels(timer)
     bres = phase_blocks_kernel(timer)
     gres = phase_groups_kernel(timer)
+    dres = phase_dense_corr_kernel(timer)
     mres = phase_matcher_kernels(timer)
     runs = phase_ba_main()
     group_runs = phase_ba_groups()
     phase_bucketed()
     n_blocks, c_pcg = phase_ba_blocks()
     phase_ba_entry()
-    phase_ba_dense(c_pcg)
+    n_dense = phase_ba_dense(c_pcg)
     phase_ba_f64()
     n_batched, n_pair, scene = phase_frontend()
     phase_frontend_verify(scene)
@@ -4892,6 +5015,13 @@ def main():
         trafalgar_plain_ms=tra["plain_ms"],
         trafalgar_bound_ms=tra["bound_ms"]))
     summary += groups_summary(gres, group_runs)
+    summary.append(dict(
+        name="dense_corr", route="cuda", source=DENSE_SOURCE,
+        replaces="none: the JAX package builds these blocks with XLA",
+        launches=n_dense, max_abs_err=max(dres["rel_err"].values()),
+        ms=dres["ms"], plain_ms=dres["plain_ms"],
+        bound_ms=dres["bound_ms"], bound_by=dres["bound_by"],
+        library_ms=None, shape="dubrovnik f32, a group per camera"))
     for name, shape, line, launches, extra in (
             ("top2_match", "frontend", 120, n_batched,
              dict(incremental_launches=n_incr,

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card:
 the Schur-matvec passes (csrc/schur_matvec.cu, sfm/ba/fused_matvec.py)
 and their grouped twins (csrc/schur_groups.cu),
-the normal-equation blocks sweep (csrc/ba_blocks.cu, fused_matvec.blocks)
-and the top-2 matcher (csrc/top2_match.cu, matching/fused_matcher.py).
+the normal-equation blocks sweep (csrc/ba_blocks.cu, fused_matvec.blocks),
+the dense Schur solver's correction build (csrc/dense_corr.cu,
+sfm/ba/dense_corr.py) and the top-2 matcher (csrc/top2_match.cu,
+matching/fused_matcher.py).
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without JAX; the repo's conftest imports JAX, so skip it there:
@@ -15,6 +17,8 @@ import numpy as np
 import pytest
 import torch
 
+import torch_dense_cases as dense_cases
+from theiasfm_tpu_torch.sfm.ba import dense_corr as dc
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 from theiasfm_tpu_torch.utils import dispatch_counts, reset_dispatch_counts
 
@@ -365,6 +369,101 @@ def test_ba_blocks_rejects_bad_inputs_on_card():
 
 
 # ----------------------------------------------------------- top2_match
+
+def _dense_case(groups, P, long=600):
+    """A dense-solver problem on the card in f32 (tests/torch_dense_cases:
+    masked and padded observations, points seen once, cameras 0 and 1
+    sharing `long` points), its pair layout and the kernel's inputs."""
+    prob, *xs = dense_cases.problem(3, groups, P, dtype=torch.float32,
+                                    device="cuda", long=long)
+    _, layout = dc.pair_layout(prob)
+    return prob, layout, xs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P", [1, 3, 10])
+@pytest.mark.parametrize("groups", ["one", "per_camera", "shared"])
+def test_dense_corr_matches_plain_on_card(groups, P):
+    """The four tables against _dense_schur_corr in f32 on the card and in
+    f64. Cameras 0 and 1 share 600 points, so their segment and their two
+    diagonal ones run over three chunks or more. Tolerance: each table
+    within 4x the plain f32 build's own distance from f64, or 16 u of its
+    largest entry (u = 2^-24) where that is smaller: the kernel sums the
+    same products in another fixed order (in registers, a butterfly, the
+    chunks in order), which may land a few roundings apart, and no more
+    (the plain f32 build reads 2e-6 to 2e-5 of the largest entry from
+    f64 on these problems, the camera-group table the most)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prob, layout, (Jc, Ji, Jp, H) = _dense_case(groups, P)
+    assert layout is not None
+    assert int((layout.seg_start[1:] - layout.seg_start[:-1]).max()) > \
+        2 * dc.CHUNK
+    Ng = prob.intrinsics.shape[0]
+    reset_dispatch_counts()
+    got = dc.corr(layout, Jc, Ji, Jp, H, prob.obs_pt, Ng)
+    torch.cuda.synchronize()
+    assert dispatch_counts() == {"dense_corr_kernel": 1}
+    ref32 = dense_cases.plain(prob, Jc, Ji, Jp, H)
+    prob64 = prob._replace(points=prob.points.double())
+    ref64 = dense_cases.plain(prob64, Jc.double(), Ji.double(), Jp.double(),
+                              H.double())
+    u = 2.0 ** -24
+    for name, g, r32, r64 in zip(("cc", "cg", "gg", "Hcg"), got, ref32,
+                                 ref64):
+        assert g.shape == r32.shape and g.dtype == torch.float32, name
+        scale = r64.abs().max().item()
+        err = (g.double() - r64).abs().max().item()
+        err32 = (r32.double() - r64).abs().max().item()
+        assert err <= max(4 * err32, 16 * u * scale), (name, err, err32)
+
+
+@pytest.mark.cuda
+def test_dense_corr_bitwise_repeatable_on_card():
+    """No atomics: two builds give the same bits; a build makes no
+    synchronizing call (torch's sync debug mode set to raise)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prob, layout, xs = _dense_case("per_camera", 3)
+    args = (layout, *xs, prob.obs_pt, prob.intrinsics.shape[0])
+    first = dc.corr(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = dc.corr(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert all(map(torch.equal, first, again))
+
+
+@pytest.mark.cuda
+def test_dense_corr_rejects_bad_inputs_on_card():
+    """The wrapper raises on what the kernels do not take: f64 or
+    non-contiguous jacobians, a tensor off the card, int64 ids, a layout
+    of other shapes, P outside 1..10."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prob, layout, (Jc, Ji, Jp, H) = _dense_case("shared", 3, long=0)
+    Ng, op = prob.intrinsics.shape[0], prob.obs_pt
+    with pytest.raises(ValueError):
+        dc.corr(layout, Jc.double(), Ji, Jp, H, op, Ng)
+    with pytest.raises(ValueError):
+        dc.corr(layout, Jc.T.contiguous().T, Ji, Jp, H, op, Ng)
+    with pytest.raises(RuntimeError):
+        dc.corr(layout, Jc, Ji, Jp, H.cpu(), op, Ng)
+    with pytest.raises(RuntimeError):
+        dc.corr(layout._replace(k=layout.k.cpu()), Jc, Ji, Jp, H, op, Ng)
+    with pytest.raises(ValueError):
+        dc.corr(layout, Jc, Ji, Jp, H, op.long(), Ng)
+    with pytest.raises(ValueError):
+        dc.corr(layout, Jc, Ji, Jp, H, op, Ng + 1)
+    with pytest.raises(ValueError):
+        dc.corr(layout._replace(seg_start=layout.seg_start[:-1]), Jc, Ji,
+                Jp, H, op, Ng)
+    with pytest.raises(ValueError):
+        dc.corr(layout, Jc, Ji.new_zeros(Ji.shape[0], 22), Jp, H, op, Ng)
+
 
 def _top2_agree(got, ref):
     """The kernel against its plain version: idx identical except at

@@ -33,7 +33,11 @@ _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 _I = ctypes.c_int
 _STRIDES = [_LL] * 6
-_SIGNATURES = {"ba_blocks": {
+_SIGNATURES = {"dense_corr": {
+    # jc, ji, jp, hinv, obs_pt, the layout's 9 index arrays, tk, ul, part,
+    # ygg, corr_cc, corr_cg, corr_gg, hcg, M, P, Nc, Ng, C, stream
+    "dense_corr_f32": [_P] * 22 + [_LL] + [_I] * 4 + [_P],
+}, "ba_blocks": {
     # jc, ji, jp, r, 8 strides, rows, pt_order, pt_start, cam_order,
     # cam_start, g_work, pt, cam, x, y, M, P, Np, Nc, stream
     "ba_blocks_f32": [_P] * 4 + [_LL] * 8 + [_I] + [_P] * 9 +

@@ -23,7 +23,11 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
     plain version fused_matvec.blocks_plain.
   * `linear_solver="dense_schur"` forms the reduced camera system S
     densely from per-point observation pairs (pt_idx_map) and solves it
-    with a Cholesky factorization instead of PCG.
+    with a Cholesky factorization instead of PCG. Its correction blocks
+    come from the dense_corr CUDA kernels (dense_corr.py; f32 on a CUDA
+    device, no mesh axis, every camera's observations in one group:
+    dense_kernel_eligible), otherwise from _dense_schur_corr's gathers
+    and index_add_.
   * LM trust region with accept/reject and lambda adaptation, as a
     host loop; the CG loop tests its stopping rule on the host once per
     iteration.
@@ -49,7 +53,8 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
     ("dense.factor"), the observation pairs it found ("dense.pairs", once
     a solve) and the steps whose candidate cost is not finite, a failed
     factorization's NaN step among them ("dense.factor_failed", read
-    with the LM step).
+    with the LM step); dense_corr counts its kernel launches
+    ("dense_corr_kernel", one a build on the kernel route).
 
 The solver runs on the device of the problem's tensors. The JAX
 solver's workarounds for the TPU (flat one-hot einsums, gather-table
@@ -59,8 +64,8 @@ fields that only choose a TPU reduction strategy — cam_idx_map/valid,
 grp_idx_map/valid, cam_sort_perm, obs_cam_sorted — are accepted and not
 read, as are the dense-Schur gather tables (cam_pair_tables,
 cam_pair_perm_fwd/rev): the dense solver forms its correction blocks
-from pt_idx_map/valid with index_add_ (the PCG solver does not read
-those either).
+from pt_idx_map/valid, by segment sums on the kernel route and with
+index_add_ otherwise (the PCG solver does not read those either).
 """
 from __future__ import annotations
 
@@ -76,6 +81,7 @@ from ...utils import collectives
 from ...utils.device import full_f32
 from ...utils.dispatch import count_dispatch, host_sync, phase
 from ...utils.padding import next_bucket
+from . import dense_corr as dcorr
 from . import fused_matvec as fm
 from .fused_matvec import round_mv
 from .losses import robust_weight
@@ -323,6 +329,24 @@ def group_kernels_eligible(prob: BAProblem, opts: BAOptions) -> bool:
             prob.points.device.type in GROUP_KERNEL_DEVICES)
 
 
+# the device types on which dense_kernel_eligible takes the kernel route;
+# elsewhere the dense solver keeps the plain _dense_schur_corr
+DENSE_KERNEL_DEVICES = ("cuda",)
+
+
+def dense_kernel_eligible(prob: BAProblem, opts: BAOptions) -> bool:
+    """Whether the dense solver builds its correction blocks through the
+    dense_corr kernels (dense_corr.corr), decided from options and shapes:
+    the dense solver, f32 parameters on a device of DENSE_KERNEL_DEVICES,
+    no mesh axis. The solve then also needs every camera's valid
+    observations to name one group, which dense_corr.pair_layout reads
+    once a solve; where they do not, the plain build runs."""
+    return (opts.linear_solver == "dense_schur" and
+            prob.points.dtype == torch.float32 and
+            opts.axis_name is None and
+            prob.points.device.type in DENSE_KERNEL_DEVICES)
+
+
 def blocks_kernel_eligible(prob: BAProblem, opts: BAOptions) -> bool:
     """Whether make_blocks runs through the ba_blocks kernel: the matvec
     kernels are eligible and the options ask for it (JAX's rule)."""
@@ -409,9 +433,13 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
     use_kernels = kernels_eligible(prob, opts)
     use_group_kernels = group_kernels_eligible(prob, opts)
     dense = opts.linear_solver == "dense_schur"
-    # the dense solver's observation pairs: fixed by pt_idx_map, so found
-    # once per solve
-    obs_pairs = _point_obs_pairs(prob) if dense else None
+    # the dense solver's observation pairs (and, on the kernel route, their
+    # layout): fixed by pt_idx_map, so found once per solve
+    obs_pairs = pair_layout = None
+    if dense and dense_kernel_eligible(prob, opts):
+        obs_pairs, pair_layout = dcorr.pair_layout(prob)
+    elif dense:
+        obs_pairs = _point_obs_pairs(prob)
     cam_index = pt_index = grp_index = None
     if use_group_kernels:
         obs_group = obs_group.to(torch.int32).contiguous()
@@ -521,8 +549,13 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             else:
                 with phase("ba.dense_corr"):
                     count_dispatch("dense.corr")
-                    corr = tuple(_psum(c) for c in _dense_schur_corr(
-                        prob, Jc12, JiP, Jp6, Hpp_inv, obs_pairs))
+                    if pair_layout is not None:
+                        corr = dcorr.corr(pair_layout, Jc12.contiguous(),
+                                          JiP.contiguous(), Jp6.contiguous(),
+                                          Hpp_inv, obs_pt, Ng)
+                    else:
+                        corr = tuple(_psum(c) for c in _dense_schur_corr(
+                            prob, Jc12, JiP, Jp6, Hpp_inv, obs_pairs))
             with phase("ba.factor"):
                 count_dispatch("dense.factor")
                 dc, dg = _dense_schur_factor_solve(Hcc, Hgg, bc, bg, lam,
@@ -812,16 +845,13 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
 
 def _point_obs_pairs(prob: BAProblem):
     """(k, l): every ordered pair of valid observations of one point
-    (k == l included), from the (Np, K) table pt_idx_map; their number
-    counts under "dense.pairs"."""
-    idx = prob.pt_idx_map.long()
-    valid = prob.pt_idx_valid.bool()
-    pairs = valid[:, :, None] & valid[:, None, :]
-    # nonzero reads its number of pairs on the host
+    (k == l included), from the (Np, K) table pt_idx_map, point by point;
+    their number, read on the host, counts under "dense.pairs"."""
+    c, n = dcorr.pair_counts(prob.pt_idx_valid)
     with host_sync("point_pairs"):
-        n, i, j = torch.nonzero(pairs, as_tuple=True)
-    count_dispatch("dense.pairs", n.shape[0])
-    return idx[n, i], idx[n, j]
+        n = int(n)
+    count_dispatch("dense.pairs", n)
+    return dcorr.expand_pairs(prob.pt_idx_map, prob.pt_idx_valid, c, n)
 
 
 def _dense_schur_corr(prob: BAProblem, Jc12, JiP, Jp6, Hpp_inv, obs_pairs):
@@ -841,7 +871,9 @@ def _dense_schur_corr(prob: BAProblem, Jc12, JiP, Jp6, Hpp_inv, obs_pairs):
     formed for every pair of obs_pairs and reduced with index_add_ keyed
     on (cam_k, cam_l) — the JAX solver's permutation gathers and
     zero-scatter tables were a TPU workaround, and its row-chunked
-    un-flattening a guard against the TPU's tile padding."""
+    un-flattening a guard against the TPU's tile padding. The build for
+    CPU tensors and wherever dense_kernel_eligible or the pair layout
+    refuses the kernels (dense_corr.corr), and their tests' reference."""
     Nc, Ng = prob.extrinsics.shape[0], prob.intrinsics.shape[0]
     M, P = Jc12.shape[0], JiP.shape[1] // 2
     dtype, device = Jc12.dtype, Jc12.device
