@@ -881,10 +881,10 @@ def phase_ba_main():
     t0 = time.perf_counter()
     prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
                         perturb_seed=7)
-    prob = ba.add_pallas_matvec_plan(ba.pad_obs_to_multiple(prob, 1024),
-                                     block=1024)
+    prob = ba.pad_obs_to_multiple(prob, 1024)
     setup_s = time.perf_counter() - t0
-    check(ba.kernels_eligible(prob, FAST_PT), "main path not eligible")
+    check(ba.kernel_route(prob, FAST_PT).matvec == "one_group",
+          "main path not on the one-group route")
     M = prob.obs_cam.shape[0]
     # warm-up (cuBLAS handles, the allocator's pools)
     _solve(prob, dataclasses.replace(FAST_PT, max_iterations=2))
@@ -937,8 +937,8 @@ def phase_ba_main():
 
 def phase_ba_groups():
     """The bench problem at the Notre-Dame scale with an intrinsics group
-    per camera (BAL's parameterisation) and no plan: S·v through the
-    grouped kernels (group_kernels_eligible), one launch of each per
+    per camera (BAL's parameterisation): S·v through the grouped kernels
+    (kernel_route's "groups"), one launch of each per
     product and none of the one-group kernels, the cost at least halved;
     f32 with exact CG against the plain matvec, final costs within 1e-3.
     Returns the launch counts of the pcg_fast_pt solve."""
@@ -948,8 +948,7 @@ def phase_ba_groups():
     prob = ba.pad_obs_to_multiple(prob._replace(
         intrinsics=prob.intrinsics.expand(Nc, -1).contiguous(),
         obs_group=prob.obs_cam.clone()), 1024)
-    check(ba.group_kernels_eligible(prob, FAST_PT) and
-          not ba.kernels_eligible(prob, FAST_PT),
+    check(ba.kernel_route(prob, FAST_PT).matvec == "groups",
           "per-camera groups: not on the grouped route")
     _solve(prob, dataclasses.replace(FAST_PT, max_iterations=2))
     _, s, sec, counts = _solve(prob, FAST_PT)
@@ -1004,18 +1003,17 @@ def phase_bucketed():
 # ------------------------------------------------------------ ba_blocks
 
 def phase_ba_blocks():
-    """pcg_fast_pblocks beside pcg_fast_pt on the Notre-Dame problem (the
-    plan at block 512, as scripts/bench_probe.py attaches it for
+    """pcg_fast_pblocks beside pcg_fast_pt on the Notre-Dame problem
+    (padded to a multiple of 512, as scripts/bench_probe.py pads it for
     pblocks), in turns pt, pblocks, pblocks, pt; the f32 cg_eta=0 solve
     with the blocks kernel against the one with plain blocks; a profile
     of 3 LM iterations. Returns (ba_blocks launches of the first
     pcg_fast_pblocks run, the plain-blocks f32 cg_eta=0 final cost)."""
     prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
                         perturb_seed=7)
-    prob = ba.add_pallas_matvec_plan(ba.pad_obs_to_multiple(prob, 512),
-                                     block=512)
-    check(ba.blocks_kernel_eligible(prob, FAST_PBLOCKS),
-          "pcg_fast_pblocks not eligible for the blocks kernel")
+    prob = ba.pad_obs_to_multiple(prob, 512)
+    check(ba.kernel_route(prob, FAST_PBLOCKS).blocks == "kernel",
+          "pcg_fast_pblocks not on the blocks kernel's route")
     _solve(prob, dataclasses.replace(FAST_PBLOCKS, max_iterations=2))
     runs = {"pcg_fast_pt": [], "pcg_fast_pblocks": []}
     launches = None
@@ -1195,19 +1193,21 @@ def phase_ba_entry():
 
 def phase_ba_dense(c_pcg):
     """dense_schur_fast (dense Schur with the correction blocks kept
-    across rejected steps) on the Notre-Dame problem, with the point and
-    camera-pair tables attached as scripts/bench_probe.py does: final
-    cost within rtol 1e-3 of the f32 PCG solve with cg_eta=0."""
+    across rejected steps) on the Notre-Dame problem, with the point map
+    attached: final cost within rtol 1e-3 of the f32 PCG solve with
+    cg_eta=0, every correction build through the dense_corr kernel."""
     prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
                         perturb_seed=7)
     t0 = time.perf_counter()
-    prob = ba.add_cam_pair_tables(ba.add_point_obs_map(prob))
+    prob = ba.add_point_obs_map(prob)
     torch.cuda.synchronize()
-    tables_s = time.perf_counter() - t0
+    point_map_s = time.perf_counter() - t0
     opts = BAOptions(max_iterations=10, loss="huber", loss_scale=2.0,
                      function_tolerance=0.0, point_indices_sorted=True,
                      linear_solver="dense_schur", precond_reuse=True,
                      trace_costs=True)
+    check(ba.kernel_route(prob, opts).dense_corr == "kernel",
+          "ba_dense: not on the dense_corr kernel's route")
     _solve(prob, dataclasses.replace(opts, max_iterations=1))
     torch.cuda.reset_peak_memory_stats()
     _, s, sec, counts = _solve(prob, opts)
@@ -1216,7 +1216,7 @@ def phase_ba_dense(c_pcg):
           f"ba_dense launched {counts} for {builds} correction builds")
     c1 = float(s.final_cost)
     rel = abs(c1 - c_pcg) / abs(c_pcg)
-    emit("ba_dense", config="dense_schur_fast", tables_s=tables_s,
+    emit("ba_dense", config="dense_schur_fast", point_map_s=point_map_s,
          initial_cost=float(s.initial_cost), final_cost=c1,
          pcg_f32_eta0_final_cost=c_pcg, rel_diff=rel, tol_rel=1e-3,
          iterations=s.num_iterations, corr_builds=builds, wall_s=sec,
@@ -1238,8 +1238,7 @@ def phase_ba_f64():
     the two precisions' costs are compared only to that."""
     prob = make_problem(550, 140_000, 4, torch.float32, "cuda",
                         perturb_seed=7)
-    prob = ba.add_pallas_matvec_plan(ba.pad_obs_to_multiple(prob, 1024),
-                                     block=1024)
+    prob = ba.pad_obs_to_multiple(prob, 1024)
     warm = dataclasses.replace(FAST_PT, matvec_bf16=False, cg_eta=0.0,
                                max_iterations=30, function_tolerance=1e-9)
     out32, s32, sec32, _ = _solve(prob, warm)
@@ -2775,13 +2774,16 @@ def _parallel_gates(run, ref, what, extrs, graph):
 
 
 def _parallel_single_and_nccl(graph):
-    """The single-device references (the observation-sharded solver
-    takes no plan, so with FAST_PT it runs the plain matvec: "plain" is
-    its reference too), then the sharded solves at world size 1 over
-    NCCL in this process: (references, readings, seconds)."""
+    """The single-device references (the observation-sharded solver runs
+    the plain sweeps whatever FAST_PT asks: "plain" is its reference
+    too), then the sharded solves at world size 1 over NCCL in this
+    process: (references, readings, seconds)."""
     prob = _nd_problem("cuda")
-    prob_k = ba.add_pallas_matvec_plan(ba.pad_obs_to_multiple(prob, 1024),
-                                       block=1024)
+    prob_k = ba.pad_obs_to_multiple(prob, 1024)
+    for axis in (None, "obs"):
+        check(ba.kernel_route(prob_k, dataclasses.replace(
+            FAST_PT, axis_name=axis)).matvec == "one_group",
+            f"parallel: FAST_PT not on the one-group route (axis {axis})")
     bundle_adjust(prob_k, dataclasses.replace(FAST_PT, max_iterations=1))
     ref = {}
     for name, p, opts in (("kernels", prob_k, FAST_PT),

@@ -1,15 +1,14 @@
 """The bundle adjuster's host reads of device values (utils/dispatch
 host_sync, counted under sync.<site>), its LM step counts (lm.accepted,
 lm.rejected) and its profiler ranges (ba.<phase>, ba.sync), at the
-solver options of the benchmark's two cells (benchmark/configs): CG
-fixed at cg_iterations products (cg_tol 0, cg_eta 0), with and without
-the fused-matvec plan. On the CPU the counts and ranges; on the card
-(marked cuda) every synchronizing call that torch's sync debug mode
-reports is a counted one. And the routes of S·v: the shared group's
-kernels (pass1, pass2) and the grouped ones (pass1_groups,
-pass2_groups), which the final cell takes on the card; on the CPU the
-final cases add the CPU to group_kernels_eligible's devices, so that the
-grouped wrappers' plain versions run where the card runs the kernels.
+solver options of the benchmark's two PCG cells (benchmark/configs): CG
+fixed at cg_iterations products (cg_tol 0, cg_eta 0), with the
+hand-written S·v and without it. On the CPU the counts and ranges; on
+the card (marked cuda) every synchronizing call that torch's sync debug
+mode reports is a counted one. And the routes of S·v that kernel_route
+picks: the shared group's kernels (pass1, pass2) for venice and the
+grouped ones (pass1_groups, pass2_groups) for final, whose plain twins
+run on the CPU where the card runs the kernels.
 
 On the card: python -m pytest --noconftest -o addopts="" -m cuda
 tests/test_torch_ba_syncs.py -q -s
@@ -46,11 +45,13 @@ READ_OPS = {"aten::is_nonzero", "aten::item", "aten::_local_scalar_dense",
             "aten::copy_", "aten::index_put_", "aten::bincount"}
 
 
-def _case(cell, plan, device="cpu", iterations=3, n_cams=8, n_pts=200):
+def _case(cell, matvec=True, device="cpu", iterations=3, n_cams=8,
+          n_pts=200):
     """A small problem and the cell's solver options: one intrinsics group
     for venice, a group per camera for final (BAL's own), observations
-    padded to the plan's block and the plan attached when `plan`; "dense"
-    is venice's options with the dense Schur solver."""
+    padded to a multiple of BLOCK as the benchmark pads them; matvec False
+    turns pallas_matvec off. "dense" is venice's options with the dense
+    Schur solver and pallas_matvec off (it forms no S·v)."""
     cfg = json.loads((CONFIGS / f"{CELLS.get(cell, CELLS['venice'])}.json"
                       ).read_text())
     active = set(cfg["optimize_intrinsics"])
@@ -65,16 +66,13 @@ def _case(cell, plan, device="cpu", iterations=3, n_cams=8, n_pts=200):
     if cell == "dense":
         opts = dataclasses.replace(opts, linear_solver="dense_schur")
         p = ba.add_point_obs_map(p)
-    if plan:
-        p = ba.add_pallas_matvec_plan(p, block=BLOCK)
+    if cell == "dense" or not matvec:
+        opts = dataclasses.replace(opts, pallas_matvec=False)
     return p, opts
 
 
-def _groups_on_cpu(monkeypatch):
-    """group_kernels_eligible, the solver's own rule, with the CPU among
-    its devices: the CPU then takes the grouped route (the wrappers' plain
-    versions, which count no launch) as the card takes the kernels."""
-    monkeypatch.setattr(ba, "GROUP_KERNEL_DEVICES", ("cuda", "cpu"))
+# the S·v route of each case of _case
+MATVEC = {"venice": "one_group", "final": "groups", "dense": "plain"}
 
 
 def _spy(monkeypatch, calls, name, refuse=False):
@@ -95,11 +93,12 @@ def _syncs():
             if k.startswith("sync.") and v}
 
 
-@pytest.mark.parametrize("cell,plan", [("venice", True), ("venice", False),
-                                       ("final", False), ("dense", False)],
+@pytest.mark.parametrize("cell,matvec", [("venice", True),
+                                         ("venice", False),
+                                         ("final", True), ("dense", True)],
                          ids=["venice-kernels", "venice-plain", "final",
                               "dense"])
-def test_sync_counts_per_solve_and_iteration(cell, plan, monkeypatch):
+def test_sync_counts_per_solve_and_iteration(cell, matvec):
     """Two solves: per LM iteration one CG stopping test per product, one
     step read and four uploads (the active intrinsics slots, two for the
     Hpp diagonal's setitem, CG's guard); per solve two uploads (the active
@@ -108,11 +107,9 @@ def test_sync_counts_per_solve_and_iteration(cell, plan, monkeypatch):
     camera and point segments, and for the group segments on the grouped
     path (final). The dense solver runs no CG: its pairs of observations
     cost one read a solve."""
-    if cell == "final":
-        _groups_on_cpu(monkeypatch)
-    prob, opts = _case(cell, plan)
-    assert ba.kernels_eligible(prob, opts) == (cell == "venice" and plan)
-    assert ba.group_kernels_eligible(prob, opts) == (cell == "final")
+    prob, opts = _case(cell, matvec)
+    route = ba.kernel_route(prob, opts)
+    assert route.matvec == (MATVEC[cell] if matvec else "plain")
     reset_dispatch_counts()
     iters = sum(ba.bundle_adjust(prob, opts)[1].num_iterations
                 for _ in range(2))
@@ -123,9 +120,9 @@ def test_sync_counts_per_solve_and_iteration(cell, plan, monkeypatch):
         want.update(cg_stop=iters * cg, upload=4 * iters + 2 * 2)
     else:
         want.update(point_pairs=2)
-    if ba.kernels_eligible(prob, opts):
+    if route.matvec == "one_group":
         want.update(index_check=2 * 2, point_order=2, segment_count=2 * 4)
-    if ba.group_kernels_eligible(prob, opts):
+    if route.matvec == "groups":
         want.update(index_check=2 * 2, point_order=2, segment_count=2 * 6)
     assert _syncs() == want
     c = dispatch_counts()
@@ -138,7 +135,7 @@ def test_sync_counts_per_solve_and_iteration(cell, plan, monkeypatch):
 def test_rejected_steps_are_the_negative_trace_entries():
     """lm.rejected counts the steps BASummary.cost_trace records as
     negative (rejected candidates); this start rejects some."""
-    prob, opts = _case("venice", True, iterations=6)
+    prob, opts = _case("venice", iterations=6)
     opts = dataclasses.replace(opts, trace_costs=True)
     reset_dispatch_counts()
     _, s = ba.bundle_adjust(prob, opts)
@@ -150,14 +147,11 @@ def test_rejected_steps_are_the_negative_trace_entries():
 
 
 @pytest.mark.parametrize("cell", ["venice", "final"])
-def test_ranges_do_not_nest_and_sync_ranges_hold_only_reads(cell,
-                                                            monkeypatch):
+def test_ranges_do_not_nest_and_sync_ranges_hold_only_reads(cell):
     """Under torch.profiler no two ba.* ranges overlap (ba.sync closes the
     phase around each read), and each ba.sync range holds the read's own
     operators and none of the solve's."""
-    if cell == "final":
-        _groups_on_cpu(monkeypatch)
-    prob, opts = _case(cell, cell == "venice", iterations=2)
+    prob, opts = _case(cell, iterations=2)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         reset_dispatch_counts()
         ba.bundle_adjust(prob, opts)
@@ -188,26 +182,23 @@ def test_no_range_without_a_profiler(monkeypatch):
     def refuse(name):
         raise AssertionError(f"range {name} opened without a profiler")
     monkeypatch.setattr(dispatch, "record_function", refuse)
-    prob, opts = _case("venice", True, iterations=1)
+    prob, opts = _case("venice", iterations=1)
     reset_dispatch_counts()
     ba.bundle_adjust(prob, opts)
     assert _syncs()["cg_stop"] == opts.cg_iterations
 
 
 def test_shared_group_route_calls_pass1_pass2_with_the_indices(monkeypatch):
-    """One intrinsics group and the plan (venice): every product calls
-    pass1 with the point index and pass2 with the camera index, and never
-    a grouped wrapper, even with the CPU among the grouped rule's
-    devices."""
-    _groups_on_cpu(monkeypatch)
+    """One intrinsics group (venice): every product calls pass1 with the
+    point index and pass2 with the camera index, and never a grouped
+    wrapper."""
     calls = []
     _spy(monkeypatch, calls, "pass1")
     _spy(monkeypatch, calls, "pass2")
     _spy(monkeypatch, calls, "pass1_groups", refuse=True)
     _spy(monkeypatch, calls, "pass2_groups", refuse=True)
-    prob, opts = _case("venice", True, iterations=2)
-    assert ba.kernels_eligible(prob, opts)
-    assert not ba.group_kernels_eligible(prob, opts)
+    prob, opts = _case("venice", iterations=2)
+    assert ba.kernel_route(prob, opts).matvec == "one_group"
     reset_dispatch_counts()
     ba.bundle_adjust(prob, opts)
     n = dispatch_counts()["schur_matvec"]
@@ -219,20 +210,19 @@ def test_shared_group_route_calls_pass1_pass2_with_the_indices(monkeypatch):
 
 
 def test_grouped_route_matches_the_plain_route(monkeypatch):
-    """A group per camera (final): with the CPU among the grouped rule's
-    devices every product calls pass1_groups with the point index and
-    pass2_groups with the camera and group indices, and the solve gives
-    what the plain S_matvec gives."""
-    prob, opts = _case("final", False, iterations=2)
-    assert not ba.group_kernels_eligible(prob, opts)   # CPU tensors
-    plain, plain_summary = ba.bundle_adjust(prob, opts)
-    _groups_on_cpu(monkeypatch)
+    """A group per camera (final): every product calls pass1_groups with
+    the point index and pass2_groups with the camera and group indices,
+    and the solve gives what the plain S_matvec gives."""
+    prob, opts = _case("final", iterations=2)
+    plain_opts = dataclasses.replace(opts, pallas_matvec=False)
+    assert ba.kernel_route(prob, plain_opts).matvec == "plain"
+    plain, plain_summary = ba.bundle_adjust(prob, plain_opts)
     calls = []
     _spy(monkeypatch, calls, "pass1", refuse=True)
     _spy(monkeypatch, calls, "pass2", refuse=True)
     _spy(monkeypatch, calls, "pass1_groups")
     _spy(monkeypatch, calls, "pass2_groups")
-    assert not ba.kernels_eligible(prob, opts)
+    assert ba.kernel_route(prob, opts).matvec == "groups"
     reset_dispatch_counts()
     out, summary = ba.bundle_adjust(prob, opts)
     n = dispatch_counts()["schur_matvec"]
@@ -251,20 +241,19 @@ def test_grouped_route_matches_the_plain_route(monkeypatch):
         torch.testing.assert_close(a, b)
 
 
-def test_group_kernels_eligible_rule(monkeypatch):
-    """The grouped rule from options and shapes: more than one group, f32,
-    no mesh axis, pallas_matvec, and tensors on a device of
-    GROUP_KERNEL_DEVICES (CUDA: so never on the CPU unless it is added)."""
-    prob, opts = _case("final", False, iterations=1)
-    assert not ba.group_kernels_eligible(prob, opts)
-    _groups_on_cpu(monkeypatch)
-    assert ba.group_kernels_eligible(prob, opts)
-    _, opts1 = _case("venice", False, iterations=1)
+def test_group_kernels_eligible_rule():
+    """kernel_route's grouped route from options and shapes: more than one
+    group, f32, no mesh axis, pallas_matvec, on the CPU as on the card;
+    one group takes the shared group's route instead."""
+    prob, opts = _case("final", iterations=1)
+    assert ba.kernel_route(prob, opts).matvec == "groups"
+    venice, opts1 = _case("venice", iterations=1)
     for p, o in ((prob, dataclasses.replace(opts, pallas_matvec=False)),
                  (prob, dataclasses.replace(opts, axis_name="obs")),
                  (prob._replace(points=prob.points.double()), opts),
-                 (_case("venice", False)[0], opts1)):
-        assert not ba.group_kernels_eligible(p, o)
+                 (venice, opts1)):
+        assert ba.kernel_route(p, o).matvec != "groups"
+    assert ba.kernel_route(venice, opts1).matvec == "one_group"
 
 
 def _port_line(stack):
@@ -285,10 +274,8 @@ def test_every_card_sync_is_counted(cell):
     warning is placed at the port's line that made it."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    prob, opts = _case(cell, cell == "venice", device="cuda", n_cams=40,
-                       n_pts=2000)
-    assert ba.kernels_eligible(prob, opts) == (cell == "venice")
-    assert ba.group_kernels_eligible(prob, opts) == (cell == "final")
+    prob, opts = _case(cell, device="cuda", n_cams=40, n_pts=2000)
+    assert ba.kernel_route(prob, opts).matvec == MATVEC[cell]
     ba.bundle_adjust(prob, dataclasses.replace(opts, max_iterations=1))
     torch.cuda.synchronize()
     reset_dispatch_counts()

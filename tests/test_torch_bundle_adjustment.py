@@ -22,7 +22,7 @@ from theiasfm_tpu.sfm.ba import bundle_adjust as j_bundle_adjust  # noqa
 from theiasfm_tpu.sfm.ba import bundle_adjustment as jba  # noqa: E402
 from theiasfm_tpu_torch.bench_problem import make_problem  # noqa: E402
 from theiasfm_tpu_torch.convert import (  # noqa: E402
-    from_jax_arrays, options_from_dict)
+    JAX_LAYOUT_FIELDS, from_jax_arrays, options_from_dict)
 from theiasfm_tpu_torch.sfm.ba import bundle_adjust  # noqa: E402
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as tba  # noqa
 from theiasfm_tpu_torch.utils import (  # noqa: E402
@@ -144,7 +144,7 @@ def test_f32_configs_match_jax(f32_problem, transposed, bf16):
                                matvec_bf16=bf16)
     _, s_j = j_bundle_adjust(jp, opts)
     tp = _to_port(jp)
-    assert tba.kernels_eligible(tp, _opts(opts))
+    assert tba.kernel_route(tp, _opts(opts)).matvec == "one_group"
     reset_dispatch_counts()
     _, s_t = bundle_adjust(tp, _opts(opts))
     # on CPU tensors the wrappers run the plain versions: no launches
@@ -180,7 +180,7 @@ def test_f32_pallas_blocks_matches_jax(f32_problem):
                                pallas_blocks=True)
     _, s_j = j_bundle_adjust(jp, opts)
     tp = _to_port(jp)
-    assert tba.blocks_kernel_eligible(tp, _opts(opts))
+    assert tba.kernel_route(tp, _opts(opts)).blocks == "kernel"
     reset_dispatch_counts()
     out_t, s_t = bundle_adjust(tp, _opts(opts))
     assert _launch_counters() == {"schur_matvec"}
@@ -196,9 +196,8 @@ def test_f32_pallas_blocks_matches_jax(f32_problem):
 
 def test_bucketed_pallas_blocks_matches_jax():
     """The reconstruction-level path: bundle_adjust_bucketed pads every
-    axis (masked padding observations), attaches the plan at block 1024
-    and, with pallas_blocks, runs make_blocks through the blocks
-    wrapper."""
+    axis (masked padding observations) and, with pallas_blocks, runs
+    make_blocks through the blocks wrapper."""
     jp = _make_problem(n_cams=12, n_pts=300, obs_per_pt=4,
                        dtype=jnp.float32)
     base = JOptions(max_iterations=5, cg_iterations=20, loss="huber",
@@ -227,6 +226,83 @@ def test_bucketed_matches_jax():
                                rtol=1e-3)
     for a, b in zip(_params(out_t), _params(out_j)):
         assert a.shape == b.shape
+
+
+# one intrinsics group (the Venice cell's), a group per camera (Final's)
+_VENICE = dict(pallas_matvec=True, pallas_blocks=True, matvec_bf16=True)
+ROUTES = [
+    ("venice", {}, {}, ("one_group", "kernel", "plain")),
+    ("venice", {}, {"pallas_blocks": False}, ("one_group", "plain", "plain")),
+    ("final", {}, {}, ("groups", "plain", "plain")),
+    ("venice", {"dtype": torch.float64}, {}, ("plain", "plain", "plain")),
+    ("venice", {}, {"pallas_matvec": False}, ("plain", "plain", "plain")),
+    ("venice", {}, {"axis_name": "obs"}, ("one_group", "plain", "plain")),
+    ("final", {}, {"axis_name": "obs"}, ("plain", "plain", "plain")),
+    ("final", {}, {"linear_solver": "dense_schur", "pallas_matvec": False},
+     ("plain", "plain", "kernel")),
+    ("final", {"dtype": torch.float64},
+     {"linear_solver": "dense_schur", "pallas_matvec": False},
+     ("plain", "plain", "plain")),
+    ("final", {}, {"linear_solver": "dense_schur", "pallas_matvec": False,
+                   "axis_name": "obs"}, ("plain", "plain", "plain")),
+    ("venice", {}, {"linear_solver": "dense_schur"},
+     ("one_group", "kernel", "kernel")),
+    ("venice", {"device": "meta"}, {}, ("one_group", "kernel", "plain")),
+]
+
+
+@pytest.mark.parametrize("groups,problem,options,route", ROUTES, ids=[
+    "venice", "venice-no-blocks", "final", "f64", "matvec-off",
+    "one-group-mesh", "groups-mesh", "dense-f32", "dense-f64", "dense-mesh",
+    "dense-pallas-options", "no-device-condition"])
+def test_kernel_route(groups, problem, options, route):
+    """kernel_route from options and shapes: S·v one_group with
+    pallas_matvec, float32 and one group (under a mesh axis too), groups
+    with several groups on one device, else plain; ba_blocks on the
+    one-group route with pallas_blocks on one device; the dense
+    corrections' kernel route for the dense solver in float32 on one
+    device. The tensors' device does not enter."""
+    p = make_problem(4, 16, 2, dtype=problem.get("dtype", torch.float32),
+                     device="cpu")
+    if "device" in problem:
+        p = tba.BAProblem(*[None if x is None else x.to(problem["device"])
+                            for x in p])
+    if groups == "final":
+        p = p._replace(intrinsics=p.intrinsics.repeat(4, 1),
+                       obs_group=p.obs_cam.clone())
+    opts = tba.BAOptions(**{**_VENICE, **options})
+    got = tba.kernel_route(p, opts)
+    assert isinstance(got, tba.KernelRoute)
+    assert tuple(got) == route
+
+
+def test_bucketed_one_group_pads_to_512(monkeypatch):
+    """A one-group float32 problem that bundle_adjust_bucketed pads to 512
+    observations takes the one-group route (on the CPU the kernels' plain
+    twins), whatever its size, and ends at the plain route's cost."""
+    tp = make_problem(8, 100, 4, dtype=torch.float32, device="cpu",
+                      perturb_seed=3)
+    opts = tba.BAOptions(max_iterations=4, cg_iterations=20, loss="huber",
+                         loss_scale=2.0, function_tolerance=0.0,
+                         pallas_matvec=True)
+    assert tba.pad_ba_problem(tp).obs_cam.shape[0] == 512
+    calls = []
+    real = tba.fm.pass1
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape[1])
+        return real(*args, **kwargs)
+    monkeypatch.setattr(tba.fm, "pass1", spy)
+    reset_dispatch_counts()
+    _, s = tba.bundle_adjust_bucketed(tp, opts)
+    monkeypatch.undo()
+    assert calls and set(calls) == {512}
+    assert len(calls) == dispatch_counts()["schur_matvec"]
+    _, s_plain = tba.bundle_adjust_bucketed(
+        tp, dataclasses.replace(opts, pallas_matvec=False))
+    assert float(s.final_cost) == pytest.approx(float(s_plain.final_cost),
+                                                rel=1e-5)
+    assert float(s.final_cost) < 0.5 * float(s.initial_cost)
 
 
 # -------------------------------------------- dense Schur, f64 polish
@@ -289,11 +365,7 @@ def test_host_f64_matches_jax(f32_problem):
 
 def _assert_equal(a, b, name):
     assert (a is None) == (b is None), name
-    if isinstance(a, tuple):
-        assert isinstance(b, tuple) and len(a) == len(b), name
-        for x, y in zip(a, b):
-            _assert_equal(x, y, name)
-    elif a is not None:
+    if a is not None:
         np.testing.assert_array_equal(a.numpy(), np.asarray(b),
                                       err_msg=name)
 
@@ -303,11 +375,7 @@ def _assert_problems_equal(pt, pj):
         _assert_equal(a, getattr(pj, name), name)
 
 
-@pytest.mark.parametrize("flags", [
-    {},
-    {"build_reduction_maps": True, "build_point_obs_map": True},
-    {"sort_by_camera": True, "minimum": 32},
-])
+@pytest.mark.parametrize("flags", [{}])
 def test_pad_ba_problem_matches_jax(flags):
     jp = _make_problem(n_cams=10, n_pts=150, obs_per_pt=3,
                        dtype=jnp.float32)
@@ -321,39 +389,55 @@ def test_pad_ba_problem_matches_jax(flags):
 
 @pytest.mark.parametrize("multiple", [512, 1024])
 def test_matvec_plan_fields_match_jax(multiple):
+    """add_pallas_matvec_plan returns the problem unchanged (the port
+    carries no tile plan); the padding before it and add_point_obs_map
+    after it give JAX's fields."""
     jp = _make_problem(n_cams=12, n_pts=300, obs_per_pt=4,
                        dtype=jnp.float32)
-    tp = _to_port(jp)
     pj = jba.add_pallas_matvec_plan(jba.pad_obs_to_multiple(jp, multiple),
                                     block=multiple)
-    pt = tba.add_pallas_matvec_plan(tba.pad_obs_to_multiple(tp, multiple),
-                                    block=multiple)
+    padded = tba.pad_obs_to_multiple(_to_port(jp), multiple)
+    pt = tba.add_pallas_matvec_plan(padded, block=multiple)
+    assert pt is padded
     _assert_problems_equal(pt, pj)
-    pj = jba.add_point_obs_map(pj)
-    pt = tba.add_point_obs_map(pt)
-    _assert_problems_equal(pt, pj)
+    _assert_problems_equal(tba.add_point_obs_map(pt),
+                           jba.add_point_obs_map(pj))
 
 
-@pytest.mark.parametrize("pad", [False, True])
-def test_cam_pair_tables_match_jax(pad):
-    """add_cam_pair_tables field for field (the tables, both permutation
-    maps and the per-camera observation tables), small classes so that
-    groups spill across rows and max_entries so that classes split into
-    chunks; and the tuple field handed over by from_jax_arrays."""
+@pytest.mark.parametrize("camera_maps", ["reduction_maps", "camera_sort"])
+def test_from_jax_arrays_drops_tpu_layouts(camera_maps):
+    """A JAX problem carrying its TPU layouts (the reduction maps or the
+    camera sort, the camera-pair tables, the fused-matvec plan) converts
+    to the same port problem as the bare one."""
     jp = _make_problem(n_cams=12, n_pts=300, obs_per_pt=4,
                        dtype=jnp.float32)
-    tp = _to_port(jp)
-    if pad:
-        jp = jba.pad_ba_problem(jp, build_point_obs_map=True)
-        tp = tba.pad_ba_problem(tp, build_point_obs_map=True)
-    else:
-        jp, tp = jba.add_point_obs_map(jp), tba.add_point_obs_map(tp)
-    kw = dict(classes=(2, 4, 16), max_entries=64)
-    pj = jba.add_cam_pair_tables(jp, **kw)
-    pt = tba.add_cam_pair_tables(tp, **kw)
-    assert len(pj.cam_pair_tables) > 3
-    _assert_problems_equal(pt, pj)
-    _assert_problems_equal(_to_port(pj), pj)
+    bare = jba.pad_ba_problem(jp, build_point_obs_map=True)
+    full = jba.pad_ba_problem(
+        jp, build_point_obs_map=True,
+        **{"reduction_maps": {"build_reduction_maps": True},
+           "camera_sort": {"sort_by_camera": True}}[camera_maps])
+    full = jba.add_cam_pair_tables(full)
+    full = jba.add_pallas_matvec_plan(full, block=256)
+    layouts = {k for k, v in full._asdict().items() if v is not None} - \
+        set(tba.BAProblem._fields)
+    grp = {"grp_idx_map", "grp_idx_valid"}
+    sort = {"cam_sort_perm", "obs_cam_sorted"}
+    assert layouts == JAX_LAYOUT_FIELDS - (
+        sort if camera_maps == "reduction_maps" else grp)
+    want, got = _to_port(bare), _to_port(full)
+    assert len(got) == 12
+    for name, a in got._asdict().items():
+        _assert_equal(a, getattr(want, name), name)
+
+
+def test_from_jax_arrays_rejects_unknown_fields():
+    jp = _make_problem(n_cams=4, n_pts=16, obs_per_pt=2, dtype=jnp.float32)
+    fields = _fields(jp)
+    fields["pmv_p0"] = None
+    from_jax_arrays(fields, device="cpu")
+    fields["cam_idx_order"] = None
+    with pytest.raises(ValueError, match="cam_idx_order"):
+        from_jax_arrays(fields, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
@@ -431,8 +515,7 @@ def test_ported_options_run(extra):
     """The two options this package once refused now solve (on the tiny
     problem those refusals were tested on)."""
     tp = make_problem(4, 16, 2, dtype=torch.float32, device="cpu")
-    tp = tba.add_pallas_matvec_plan(tba.add_point_obs_map(
-        tba.pad_obs_to_multiple(tp, 32)), block=32)
+    tp = tba.add_point_obs_map(tba.pad_obs_to_multiple(tp, 32))
     _, s = bundle_adjust(tp, tba.BAOptions(max_iterations=3, **extra))
     assert s.num_iterations == 3
     assert float(s.final_cost) < float(s.initial_cost)

@@ -2,8 +2,8 @@
 (sfm/ba/dense_corr.py) on the CPU: the layout's parts (the pairs sorted
 by camera pair, the segment starts and chunks, the camera and group
 maps), its plain segment sums against bundle_adjustment._dense_schur_corr
-in float64, and the solver's route to it (dense_kernel_eligible, the one
-host read a solve). The CUDA kernels themselves are held to the same
+in float64, and the solver's route to it (kernel_route's dense_corr, the
+one host read a solve). The CUDA kernels themselves are held to the same
 plain build on the card (tests/test_torch_kernels_cuda.py)."""
 from __future__ import annotations
 
@@ -160,11 +160,13 @@ def _solve_case(groups="per_camera", n_cams=8, iterations=3):
     return p, opts
 
 
-def _kernel_route_on_cpu(monkeypatch):
-    """dense_kernel_eligible, the solver's rule, with the CPU among its
-    devices: the CPU then takes the kernel route (dense_corr.corr's plain
-    version, which counts no launch) as the card takes the kernels."""
-    monkeypatch.setattr(ba, "DENSE_KERNEL_DEVICES", ("cuda", "cpu"))
+def _plain_route(monkeypatch):
+    """kernel_route with its dense_corr set to "plain": the solver then
+    builds its corrections with _dense_schur_corr, as it does in float64
+    or under a mesh axis."""
+    rule = ba.kernel_route
+    monkeypatch.setattr(ba, "kernel_route", lambda p, o: rule(p, o)._replace(
+        dense_corr="plain"))
 
 
 def _spy(monkeypatch, module, name, calls, refuse=False):
@@ -178,36 +180,34 @@ def _spy(monkeypatch, module, name, calls, refuse=False):
     monkeypatch.setattr(module, name, wrapped)
 
 
-def test_dense_kernel_eligible_rule(monkeypatch):
+def test_dense_kernel_eligible_rule():
     """The kernel route from options and shapes: the dense solver, f32,
-    no mesh axis, tensors on a device of DENSE_KERNEL_DEVICES (CUDA: so
-    never on the CPU unless it is added)."""
+    no mesh axis, on the CPU as on the card."""
     prob, opts = _solve_case()
-    assert not ba.dense_kernel_eligible(prob, opts)
-    _kernel_route_on_cpu(monkeypatch)
-    assert ba.dense_kernel_eligible(prob, opts)
+    assert ba.kernel_route(prob, opts).dense_corr == "kernel"
     for p, o in ((prob, dataclasses.replace(opts, linear_solver="pcg")),
                  (prob, dataclasses.replace(opts, axis_name="obs")),
                  (prob._replace(points=prob.points.double()), opts)):
-        assert not ba.dense_kernel_eligible(p, o)
+        assert ba.kernel_route(p, o).dense_corr == "plain"
 
 
 @pytest.mark.parametrize("groups", ["per_camera", "one"])
 def test_kernel_route_matches_the_plain_route(groups, monkeypatch):
-    """With the CPU among the rule's devices every correction build goes
-    through dense_corr.corr and never _dense_schur_corr, with the same
-    host reads (the LM step, the uploads, the pairs' one read a solve),
-    and the solve gives what the plain route gives: to float32's rounding
+    """On the CPU every correction build goes through dense_corr.corr and
+    never _dense_schur_corr, with the same host reads as the plain route
+    (the LM step, the uploads, the pairs' one read a solve), and the
+    solve gives what the plain route gives: to float32's rounding
     with a group a camera (the same sums in the same order), and with one
     group (corr_cg and corr_gg then sum the cameras in another order)
     the same cost to rtol 1e-5 and a step within 3e-3 of the plain one
     in norm, kappa u for the kappa ~ 5e4 of such a ring's scaled system
     (tests/test_torch_dense_schur_exact.py)."""
     prob, opts = _solve_case(groups)
+    _plain_route(monkeypatch)
     reset_dispatch_counts()
     plain, plain_summary = ba.bundle_adjust(prob, opts)
     plain_counts = dispatch_counts()
-    _kernel_route_on_cpu(monkeypatch)
+    monkeypatch.undo()
     calls = []
     _spy(monkeypatch, ba.dcorr, "corr", calls)
     _spy(monkeypatch, ba, "_dense_schur_corr", calls, refuse=True)
@@ -237,8 +237,7 @@ def test_spanning_groups_take_the_plain_route(monkeypatch):
     first = int(torch.nonzero(prob.obs_mask & (prob.obs_cam == 2))[0])
     grp[first] = 3
     prob = prob._replace(obs_group=grp)
-    _kernel_route_on_cpu(monkeypatch)
-    assert ba.dense_kernel_eligible(prob, opts)
+    assert ba.kernel_route(prob, opts).dense_corr == "kernel"
     calls = []
     _spy(monkeypatch, ba.dcorr, "corr", calls, refuse=True)
     _spy(monkeypatch, ba, "_dense_schur_corr", calls)

@@ -13,7 +13,6 @@ import torch
 
 from theiasfm_tpu.sfm.ba.pallas_matvec import FusedMatvec
 from theiasfm_tpu.sfm.ba.pallas_matvec import MatvecPlan as JaxMatvecPlan
-from theiasfm_tpu.sfm.ba.pallas_matvec import PlanShapes as JaxPlanShapes
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 
 # tolerances of tests/test_pallas_matvec.py: u is a 6+P-term sum per
@@ -107,30 +106,6 @@ def test_passes_match_pallas_f32(Nc, transposed):
 def test_passes_match_pallas_bf16(transposed):
     """bf16 jacobians in both packages: the same rounding points."""
     _run_both(12, transposed, bf16=True)
-
-
-@pytest.mark.parametrize("Nc,Np,block", [(12, 100, 256), (1300, 700, 512)])
-def test_plan_matches_jax(Nc, Np, block):
-    rng = np.random.default_rng(3)
-    M = 4 * block
-    obs_pt = np.sort(rng.integers(0, Np, M)).astype(np.int32)
-    obs_cam = rng.integers(0, Nc, M).astype(np.int32)
-    pj = JaxMatvecPlan(obs_cam, obs_pt, Nc, Np, block=block)
-    pt = fm.MatvecPlan(obs_cam, obs_pt, Nc, Np, block=block)
-    for name in ("M", "B", "G", "Nc", "Np", "W", "Np_pad", "cam_chunk",
-                 "cam_pad"):
-        assert getattr(pt, name) == getattr(pj, name), name
-    for name in ("tile_p0", "local_pt", "cam_tiles"):
-        np.testing.assert_array_equal(getattr(pt, name), getattr(pj, name))
-    sj = JaxPlanShapes(pj.G, pj.B, Nc, Np, pj.W)
-    st = fm.PlanShapes(pt.G, pt.B, Nc, Np, pt.W)
-    assert vars(st) == vars(sj)
-
-
-def test_plan_rejects_unsorted():
-    with pytest.raises(ValueError):
-        fm.MatvecPlan(np.zeros(8, np.int32), np.array([0, 1] * 4), 1, 2,
-                      block=8)
 
 
 def test_wrapper_on_other_device_raises():

@@ -58,9 +58,9 @@ def test_runs_without_jax():
         from theiasfm_tpu_torch.bench_problem import make_problem
         from theiasfm_tpu_torch.sfm.ba import BAOptions, bundle_adjust
         from theiasfm_tpu_torch.sfm.ba.bundle_adjustment import (
-            add_pallas_matvec_plan, pad_obs_to_multiple)
+            pad_obs_to_multiple)
         p = make_problem(8, 64, 3, dtype=torch.float32, device="cpu")
-        p = add_pallas_matvec_plan(pad_obs_to_multiple(p, 256), 256)
+        p = pad_obs_to_multiple(p, 256)
         o = BAOptions(max_iterations=2, cg_iterations=10, loss="huber",
                       loss_scale=2.0)
         for kw in ({}, {"pallas_matvec": True, "matvec_bf16": True}):

@@ -18,6 +18,8 @@ import pytest
 import torch
 
 import torch_dense_cases as dense_cases
+from theiasfm_tpu_torch.bench_problem import make_problem
+from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import dense_corr as dc
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 from theiasfm_tpu_torch.utils import dispatch_counts, reset_dispatch_counts
@@ -368,7 +370,30 @@ def test_ba_blocks_rejects_bad_inputs_on_card():
         fm.blocks(*j[:3], j[3].cpu(), ids, ids, 3, 4)
 
 
-# ----------------------------------------------------------- top2_match
+@pytest.mark.cuda
+def test_bucketed_one_group_launches_the_kernels_on_card():
+    """A one-group float32 problem that bundle_adjust_bucketed pads to 512
+    observations runs every Schur product through schur_pass1 and
+    schur_pass2, one launch each a product."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prob = make_problem(8, 100, 4, dtype=torch.float32, device="cuda",
+                        perturb_seed=3)
+    assert ba.pad_ba_problem(prob).obs_cam.shape[0] == 512
+    opts = ba.BAOptions(max_iterations=3, cg_iterations=10, loss="huber",
+                        loss_scale=2.0, function_tolerance=0.0,
+                        pallas_matvec=True)
+    reset_dispatch_counts()
+    _, s = ba.bundle_adjust_bucketed(prob, opts)
+    torch.cuda.synchronize()
+    c = dispatch_counts()
+    assert c["schur_matvec"] > 0
+    assert c.get("schur_pass1", 0) == c.get("schur_pass2", 0) == \
+        c["schur_matvec"]
+    assert float(s.final_cost) < float(s.initial_cost)
+
+
+# ----------------------------------------------------------- dense_corr
 
 def _dense_case(groups, P, long=600):
     """A dense-solver problem on the card in f32 (tests/torch_dense_cases:
@@ -464,6 +489,8 @@ def test_dense_corr_rejects_bad_inputs_on_card():
     with pytest.raises(ValueError):
         dc.corr(layout, Jc, Ji.new_zeros(Ji.shape[0], 22), Jp, H, op, Ng)
 
+
+# ----------------------------------------------------------- top2_match
 
 def _top2_agree(got, ref):
     """The kernel against its plain version: idx identical except at

@@ -21,6 +21,7 @@ from theiasfm_tpu_torch.parallel import (make_mesh, mesh as tmesh,
                                          point_sharded_bundle_adjust,
                                          sharded_bundle_adjust)
 from theiasfm_tpu_torch.sfm.ba import BAOptions, bundle_adjust
+from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
 from torch_parallel_cases import (assert_ranks_agree, jax_mesh,
                                   jax_mesh_2d, jax_problem, params,
                                   port_opts, run_threads, to_port)
@@ -97,13 +98,14 @@ def test_point_sharded_kernel_route_matches_jax():
     _check(got, jout, js, 1e-4, 1e-3, 1e-4, points=False)
 
 
-@pytest.mark.parametrize("pallas_block", [0, 1024])
+@pytest.mark.parametrize("pallas_block", [0])
 def test_partition_matches_jax(pallas_block):
     """partition_problem_by_point: every array and the point ranges equal
-    to JAX's, bit for bit, with and without the per-shard plans."""
+    to JAX's, bit for bit (JAX's without its per-shard TPU plans, which
+    the port does not build)."""
     jp = jax_problem(12, 400, 4, jnp.float64)
     want, wmeta = jps.partition_problem_by_point(jp, 8, pallas_block)
-    got, gmeta = partition_problem_by_point(to_port(jp), 8, pallas_block)
+    got, gmeta = partition_problem_by_point(to_port(jp), 8)
     assert sorted(got) == sorted(want)
     for k in want:
         assert got[k].dtype == want[k].dtype, k
@@ -111,6 +113,26 @@ def test_partition_matches_jax(pallas_block):
     np.testing.assert_array_equal(gmeta["pt_start"], wmeta["pt_start"])
     assert (gmeta["Np_loc"], gmeta["n_dev"]) == (wmeta["Np_loc"],
                                                  wmeta["n_dev"])
+
+
+def test_sharded_bundle_adjust_runs_plain_sweeps(monkeypatch):
+    """The observation-sharded solver takes pallas_matvec and
+    pallas_blocks and runs the plain sweeps all the same (its ranks split
+    the observations of a point): 4 ranks in float32 call no hand-written
+    sweep and end at the bits of the run with both off."""
+    jp = jax_problem(8, 96, 3, jnp.float32)
+    opts = port_opts(dataclasses.replace(OBS_OPTS, max_iterations=3))
+    on = dataclasses.replace(opts, pallas_matvec=True, pallas_blocks=True)
+    off = run_threads(_solve(sharded_bundle_adjust, opts), 4, to_port(jp))
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a hand-written sweep ran")
+    for name in ("pass1", "pass2", "blocks"):
+        monkeypatch.setattr(fm, name, refuse)
+    got = run_threads(_solve(sharded_bundle_adjust, on), 4, to_port(jp))
+    assert_ranks_agree(got)
+    for a, b in zip(got[0], off[0]):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
 def test_shard_ba_problem_matches_jax():

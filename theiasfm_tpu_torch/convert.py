@@ -43,10 +43,22 @@ from .sfm.view_graph import TwoViewInfo, ViewGraph
 from .utils.device import resolve_device
 
 
+# the JAX BAProblem's TPU layouts (reduction maps, camera sort, the fused
+# matvec's tile plan, the dense-Schur pair tables): the port reads none
+JAX_LAYOUT_FIELDS = frozenset((
+    "cam_idx_map", "cam_idx_valid", "grp_idx_map", "grp_idx_valid",
+    "cam_sort_perm", "obs_cam_sorted", "pmv_cam_tiles", "pmv_lpt_tiles",
+    "pmv_p0", "pmv_window", "cam_pair_tables", "cam_pair_perm_fwd",
+    "cam_pair_perm_rev"))
+
+
 def from_jax_arrays(fields: dict, device="cuda") -> BAProblem:
     """numpy arrays of the JAX BAProblem's fields -> BAProblem on
-    `device`. Types are kept (float32/float64, int32, bool)."""
+    `device`. Types are kept (float32/float64, int32, bool). The fields
+    of JAX_LAYOUT_FIELDS are dropped; any other field the port's
+    BAProblem lacks raises ValueError."""
     device = resolve_device(device)
+    fields = {k: v for k, v in fields.items() if k not in JAX_LAYOUT_FIELDS}
     unknown = set(fields) - set(BAProblem._fields)
     if unknown:
         raise ValueError(f"unknown BAProblem fields: {sorted(unknown)}")
@@ -54,8 +66,6 @@ def from_jax_arrays(fields: dict, device="cuda") -> BAProblem:
     def conv(x):
         if x is None:
             return None
-        if isinstance(x, tuple):
-            return tuple(conv(e) for e in x)
         return torch.as_tensor(np.array(x, copy=True), device=device)
 
     return BAProblem(**{k: conv(v) for k, v in fields.items()})

@@ -13,7 +13,7 @@
 // and Hcg[cam, grp] = Σ Jcᵀ Ji over each camera's valid observations.
 //
 // It replaces no TPU kernel. The JAX package forms these blocks with XLA
-// on the TPU, through scatter-free gather tables (build_cam_pair_tables in
+// on the TPU, through scatter-free camera-pair gather tables (in
 // theiasfm_tpu/sfm/ba/bundle_adjustment.py, a workaround for the TPU's
 // slow scatters); the port's plain build, _dense_schur_corr, gathers the
 // blocks of all pairs, forms them by batched 6x3·3x6 cuBLAS products that

@@ -175,20 +175,18 @@ def sharded_bundle_adjust(prob: BAProblem, opts: BAOptions, mesh: Mesh,
     the solved parameters, on the mesh's device; BASummary), the same on
     every rank.
 
-    The dense-Schur solver and the fused-matvec plan are refused: both
-    index the global observation order, which this layout splits (JAX
-    gathers it back inside XLA); point_sharded_bundle_adjust runs the
-    kernels per rank."""
+    The dense-Schur solver is refused: it needs every observation of a
+    point on one rank, which this layout splits (JAX gathers them back
+    inside XLA). S·v and the blocks run the plain sweeps whatever
+    pallas_matvec and pallas_blocks ask; point_sharded_bundle_adjust
+    runs the kernels per rank."""
     if opts.linear_solver == "dense_schur":
         raise ValueError("the observation-sharded solver runs PCG: "
                          "dense_schur needs every observation of a point on "
                          "one rank")
-    if opts.pallas_matvec and prob.pmv_p0 is not None:
-        raise ValueError("the observation-sharded solver takes no "
-                         "fused-matvec plan (its tiles index the global "
-                         "observations); use point_sharded_bundle_adjust")
     local = shard_ba_problem(prob, mesh, axis_name)
-    run_opts = dataclasses.replace(opts, axis_name=axis_name)
+    run_opts = dataclasses.replace(opts, axis_name=axis_name,
+                                   pallas_matvec=False, pallas_blocks=False)
     with mesh.bind():
         out, summary = _bundle_adjust(local, run_opts,
                                       points_replicated=True)

@@ -13,13 +13,15 @@ one shards the points and their observations together:
   * only the camera and group reductions and the cost cross the mesh:
     O(Nc * 36 + Ng * P^2) values per matvec, whatever the scene's size.
 
-With `BAOptions.pallas_matvec` and one intrinsics group each rank runs
-S·v through the Schur-matvec kernels (sfm/ba/fused_matvec.py) on its own
-observations, and the kernels' camera-side outputs are all-reduced
-(bundle_adjustment.py). The LM loop runs on every rank on all-reduced
-costs, so its decisions agree across ranks. The points come back by one
-all-reduce: each rank writes its range into a zero (Np, 3) tensor, and
-the sum of one value and zeros is exact.
+Each rank's solve takes the route that bundle_adjustment.kernel_route
+picks under a mesh axis: with `BAOptions.pallas_matvec`, float32 and one
+intrinsics group, S·v runs through the Schur-matvec kernels
+(sfm/ba/fused_matvec.py) on the rank's own observations and their
+camera- and group-side outputs are all-reduced; the blocks sweep, and S·v
+in every other case, run plain. The LM loop runs on every rank on
+all-reduced costs, so its decisions agree across ranks. The points come
+back by one all-reduce: each rank writes its range into a zero (Np, 3)
+tensor, and the sum of one value and zeros is exact.
 
 A 2-D ("dcn", "ici") mesh shards the points over the product of its
 axes, and the reductions run within a row, then across rows.
@@ -33,7 +35,6 @@ import numpy as np
 import torch
 
 from ..sfm.ba import BAOptions, BAProblem, BASummary, bundle_adjust
-from ..sfm.ba import fused_matvec as fm
 from ..utils import collectives
 from ..utils.padding import next_bucket
 from .mesh import Mesh
@@ -45,8 +46,7 @@ def _host(x):
     return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
-def partition_problem_by_point(prob: BAProblem, n_dev: int,
-                               pallas_block: int = 0):
+def partition_problem_by_point(prob: BAProblem, n_dev: int):
     """Split a point-sorted BAProblem into n_dev shards (numpy, the JAX
     function's arrays bit for bit).
 
@@ -54,9 +54,7 @@ def partition_problem_by_point(prob: BAProblem, n_dev: int,
     observations and D * Np_loc points; meta the per-shard point ranges
     (pt_start), Np_loc and n_dev for reassembly. Padding observations
     are masked and point at their shard's last real point; padding
-    points carry point_mask False. pallas_block > 0 rounds M_loc up to
-    a multiple of it and adds each shard's fused-matvec plan (pmv_*)
-    with one point window for all shards."""
+    points carry point_mask False."""
     obs_pt = _host(prob.obs_pt)
     M = obs_pt.shape[0]
     Np = prob.points.shape[0]
@@ -76,8 +74,6 @@ def partition_problem_by_point(prob: BAProblem, n_dev: int,
 
     M_loc = next_bucket(int(np.max(np.diff(obs_start))), 64)
     Np_loc = next_bucket(int(np.max(np.diff(pt_start))), 16)
-    if pallas_block:
-        M_loc = next_bucket(M_loc, pallas_block)
 
     D = n_dev
     src = {k: _host(getattr(prob, k)) for k in
@@ -100,8 +96,8 @@ def partition_problem_by_point(prob: BAProblem, n_dev: int,
         obs_group[d, :m] = src["obs_group"][o0:o1]
         obs_pt_loc[d, :m] = obs_pt[o0:o1] - p0
         # padding observations point at the shard's last real point (the
-        # masked jacobians make the target irrelevant), which keeps the
-        # plan's point window tight on point-imbalanced shards
+        # masked jacobians make the target irrelevant), which keeps each
+        # shard's observations sorted by point
         obs_pt_loc[d, m:] = max(int(n) - 1, 0)
         obs_pix[d, :m] = src["obs_pix"][o0:o1]
         obs_mask[d, :m] = src["obs_mask"][o0:o1]
@@ -117,23 +113,6 @@ def partition_problem_by_point(prob: BAProblem, n_dev: int,
         points=points.reshape(D * Np_loc, 3),
         point_mask=point_mask.reshape(-1),
     )
-    if pallas_block:
-        Nc = prob.extrinsics.shape[0]
-        # each shard's natural window first, then every plan rebuilt
-        # with the largest, so the shards' plans have one shape
-        plans = [fm.MatvecPlan(obs_cam[d], obs_pt_loc[d], Nc, Np_loc,
-                               block=pallas_block) for d in range(D)]
-        W = max(p.W for p in plans)
-        plans = [fm.MatvecPlan(obs_cam[d], obs_pt_loc[d], Nc, Np_loc,
-                               block=pallas_block, force_window=W)
-                 for d in range(D)]
-        shards["pmv_cam_tiles"] = np.concatenate(
-            [p.cam_tiles for p in plans]).astype(np.int32)
-        shards["pmv_lpt_tiles"] = np.concatenate(
-            [p.local_pt for p in plans]).astype(np.int32)
-        shards["pmv_p0"] = np.concatenate(
-            [p.tile_p0 for p in plans]).astype(np.int32)
-        shards["pmv_window"] = np.zeros((W,), np.int8)
     meta = dict(pt_start=pt_start, Np_loc=Np_loc, n_dev=D)
     return shards, meta
 
@@ -150,9 +129,7 @@ def point_sharded_bundle_adjust(
     axis_name=("dcn", "ici")."""
     mesh.check_axes(axis_name)
     D, d = mesh.size, mesh.rank
-    use_kernels = opts.pallas_matvec and prob.intrinsics.shape[0] == 1
-    shards, meta = partition_problem_by_point(
-        prob, D, pallas_block=1024 if use_kernels else 0)
+    shards, meta = partition_problem_by_point(prob, D)
     M_loc = shards["obs_cam"].shape[0] // D
     Np_loc = meta["Np_loc"]
     dev = mesh.device
@@ -170,15 +147,6 @@ def point_sharded_bundle_adjust(
         obs_pt=mine("obs_pt", M_loc), obs_pix=mine("obs_pix", M_loc),
         obs_mask=mine("obs_mask", M_loc), cam_mask=cam_mask.to(dev),
         point_mask=mine("point_mask", Np_loc))
-    if use_kernels:
-        # this rank's fused-matvec plan: its kernels sum its own
-        # observations
-        G = shards["pmv_p0"].shape[0] // D
-        local = local._replace(
-            pmv_cam_tiles=mine("pmv_cam_tiles", G),
-            pmv_lpt_tiles=mine("pmv_lpt_tiles", G),
-            pmv_p0=mine("pmv_p0", G),
-            pmv_window=torch.as_tensor(shards["pmv_window"], device=dev))
     run_opts = dataclasses.replace(opts, axis_name=axis_name,
                                    point_indices_sorted=True)
     p0, p1 = (int(x) for x in meta["pt_start"][d:d + 2])

@@ -8,26 +8,24 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
   * The point block of the Hessian is block-diagonal 3x3, inverted in
     closed form, batched.
   * The reduced camera system S = Hcc - Hcp Hpp^-1 Hpc is never formed:
-    S·v is two sweeps over the observations. With
-    `BAOptions.pallas_matvec` (and Ng == 1, a plan attached by
-    add_pallas_matvec_plan, f32 parameters) the sweeps are the CUDA
-    kernels of fused_matvec.py; with Ng > 1 (f32 parameters on a CUDA
-    device, no mesh axis) its grouped kernels, which read each
-    observation's group; otherwise S_matvec below computes them with
-    gathers, einsums and index_add_.
+    S·v is two sweeps over the observations.
   * Preconditioner: SCHUR_JACOBI (exact 6x6 diagonal blocks of S) or
     block_diag.
   * The undamped normal-equation blocks (make_blocks) are one sweep
-    over the observations: with `BAOptions.pallas_blocks` (and the
-    matvec kernels eligible) the ba_blocks CUDA kernel, otherwise its
-    plain version fused_matvec.blocks_plain.
+    over the observations.
   * `linear_solver="dense_schur"` forms the reduced camera system S
     densely from per-point observation pairs (pt_idx_map) and solves it
-    with a Cholesky factorization instead of PCG. Its correction blocks
-    come from the dense_corr CUDA kernels (dense_corr.py; f32 on a CUDA
-    device, no mesh axis, every camera's observations in one group:
-    dense_kernel_eligible), otherwise from _dense_schur_corr's gathers
-    and index_add_.
+    with a Cholesky factorization instead of PCG.
+  * kernel_route picks, once a solve and from options and shapes alone,
+    the code of each sweep: S·v through the shared group's kernels
+    (fused_matvec.pass1/pass2, "one_group"), the grouped ones
+    (pass1_groups/pass2_groups, "groups") or S_matvec's einsums
+    ("plain"); make_blocks through ba_blocks (fused_matvec.blocks) or
+    fused_matvec.blocks_plain; the dense corrections through
+    dense_corr.corr or _dense_schur_corr (the plain build, which also
+    runs where a camera's observations span groups). The hand-written
+    routes dispatch on their tensors' device: the CUDA kernels on the
+    card, their plain twins on the CPU.
   * LM trust region with accept/reject and lambda adaptation, as a
     host loop; the CG loop tests its stopping rule on the host once per
     iteration.
@@ -58,14 +56,9 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
 
 The solver runs on the device of the problem's tensors. The JAX
 solver's workarounds for the TPU (flat one-hot einsums, gather-table
-reductions, lane-padded buffers) are not ported: the same math is
-written with einsum on (M, 2, k) views and index_add_. So the BAProblem
-fields that only choose a TPU reduction strategy — cam_idx_map/valid,
-grp_idx_map/valid, cam_sort_perm, obs_cam_sorted — are accepted and not
-read, as are the dense-Schur gather tables (cam_pair_tables,
-cam_pair_perm_fwd/rev): the dense solver forms its correction blocks
-from pt_idx_map/valid, by segment sums on the kernel route and with
-index_add_ otherwise (the PCG solver does not read those either).
+reductions, lane-padded buffers, the fused matvec's tile plan) are not
+ported, nor are the BAProblem fields that only carry them: the same math
+is written with einsum on (M, 2, k) views, index_add_ and segment sums.
 """
 from __future__ import annotations
 
@@ -99,28 +92,10 @@ class BAProblem(NamedTuple):
     obs_mask: torch.Tensor      # (M,) bool (False = padding)
     cam_mask: Optional[torch.Tensor] = None    # (Nc,) False = constant
     point_mask: Optional[torch.Tensor] = None  # (Np,)
-    # accepted, not read (TPU reduction strategies; see module doc),
-    # except pt_idx_map/valid, which the dense solver reads
-    cam_idx_map: Optional[torch.Tensor] = None
-    cam_idx_valid: Optional[torch.Tensor] = None
-    pt_idx_map: Optional[torch.Tensor] = None
-    pt_idx_valid: Optional[torch.Tensor] = None
-    grp_idx_map: Optional[torch.Tensor] = None
-    grp_idx_valid: Optional[torch.Tensor] = None
-    cam_sort_perm: Optional[torch.Tensor] = None
-    obs_cam_sorted: Optional[torch.Tensor] = None
-    # fused-matvec plan (add_pallas_matvec_plan); its presence makes the
-    # problem eligible for the CUDA kernels. pmv_window is a (W,) int8
-    # zeros shape carrier, as in the JAX package.
-    pmv_cam_tiles: Optional[torch.Tensor] = None   # (G, B) int32
-    pmv_lpt_tiles: Optional[torch.Tensor] = None   # (G, B) int32
-    pmv_p0: Optional[torch.Tensor] = None          # (G,) int32
-    pmv_window: Optional[torch.Tensor] = None      # (W,) int8
-    # accepted, not read (the TPU's scatter-free dense-Schur tables; see
-    # add_cam_pair_tables)
-    cam_pair_tables: Optional[tuple] = None
-    cam_pair_perm_fwd: Optional[torch.Tensor] = None
-    cam_pair_perm_rev: Optional[torch.Tensor] = None
+    # the per-point observation table (add_point_obs_map), which the
+    # dense solver pairs observations from
+    pt_idx_map: Optional[torch.Tensor] = None     # (Np, K) int32
+    pt_idx_valid: Optional[torch.Tensor] = None   # (Np, K) bool
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,15 +139,14 @@ class BAOptions:
     cg_eta: float = 0.0
     # "schur_jacobi" or "block_diag"
     preconditioner: str = "schur_jacobi"
-    # run S·v through the CUDA kernels when eligible (Ng == 1, plan
-    # attached, f32 parameters; on CPU tensors the kernels' plain versions
-    # run), or through the grouped kernels (group_kernels_eligible)
+    # run S·v through the hand-written sweeps where kernel_route allows
+    # (f32 parameters; one group, or several on one device)
     pallas_matvec: bool = False
     # kernel jacobian layout: (F, M) copies made once per damped solve
     # (True) or strided views of the (M, F) arrays (False)
     pallas_transposed: bool = True
-    # also run make_blocks' sweep through the ba_blocks kernel when the
-    # matvec kernels are eligible
+    # also run make_blocks' sweep through ba_blocks where S·v takes the
+    # one-group route on one device (kernel_route)
     pallas_blocks: bool = False
     # keep jacobians and the undamped blocks across rejected steps
     jacobian_reuse: bool = False
@@ -305,53 +279,44 @@ def _check_supported(prob: BAProblem, opts: BAOptions):
         raise ValueError(f"unknown preconditioner {opts.preconditioner!r}")
 
 
-def kernels_eligible(prob: BAProblem, opts: BAOptions) -> bool:
-    """Whether bundle_adjust runs S·v through the fused-matvec kernels
-    (decided from options and shapes alone, as in the JAX solver)."""
-    return (opts.pallas_matvec and prob.intrinsics.shape[0] == 1 and
-            prob.pmv_p0 is not None and
-            prob.points.dtype == torch.float32)
+class KernelRoute(NamedTuple):
+    """The code each observation sweep of a solve runs (kernel_route)."""
+    matvec: str       # S·v: "one_group", "groups" or "plain"
+    blocks: str       # make_blocks' sweep: "kernel" or "plain"
+    dense_corr: str   # the dense solver's corrections: "kernel" or "plain"
 
 
-# the device types on which group_kernels_eligible takes the grouped
-# route; elsewhere S·v stays on the plain S_matvec
-GROUP_KERNEL_DEVICES = ("cuda",)
+def kernel_route(prob: BAProblem, opts: BAOptions) -> KernelRoute:
+    """The one rule that picks each sweep's code, from options and shapes
+    alone. The hand-written sweeps take float32 parameters:
 
+      * matvec: "one_group" (fused_matvec.pass1/pass2) with pallas_matvec
+        and one intrinsics group, on one device or per rank of a mesh;
+        "groups" (pass1_groups/pass2_groups) with pallas_matvec and
+        several groups on one device; else "plain" (S_matvec's einsums).
+      * blocks: "kernel" (fused_matvec.blocks) where matvec is
+        "one_group", pallas_blocks is set and there is no mesh axis; else
+        "plain" (fused_matvec.blocks_plain).
+      * dense_corr: "kernel" (dense_corr.corr) for the dense solver on
+        one device; else "plain" (_dense_schur_corr). A solve whose
+        cameras' observations span groups still builds plainly
+        (dense_corr.pair_layout says so once a solve).
 
-def group_kernels_eligible(prob: BAProblem, opts: BAOptions) -> bool:
-    """Whether bundle_adjust runs S·v through the grouped kernels
-    (fused_matvec.pass1_groups, pass2_groups), decided from options and
-    shapes alone: more than one intrinsics group, f32 parameters on a
-    device of GROUP_KERNEL_DEVICES, no mesh axis. No plan is needed."""
-    return (opts.pallas_matvec and prob.intrinsics.shape[0] > 1 and
-            prob.points.dtype == torch.float32 and
-            opts.axis_name is None and
-            prob.points.device.type in GROUP_KERNEL_DEVICES)
-
-
-# the device types on which dense_kernel_eligible takes the kernel route;
-# elsewhere the dense solver keeps the plain _dense_schur_corr
-DENSE_KERNEL_DEVICES = ("cuda",)
-
-
-def dense_kernel_eligible(prob: BAProblem, opts: BAOptions) -> bool:
-    """Whether the dense solver builds its correction blocks through the
-    dense_corr kernels (dense_corr.corr), decided from options and shapes:
-    the dense solver, f32 parameters on a device of DENSE_KERNEL_DEVICES,
-    no mesh axis. The solve then also needs every camera's valid
-    observations to name one group, which dense_corr.pair_layout reads
-    once a solve; where they do not, the plain build runs."""
-    return (opts.linear_solver == "dense_schur" and
-            prob.points.dtype == torch.float32 and
-            opts.axis_name is None and
-            prob.points.device.type in DENSE_KERNEL_DEVICES)
-
-
-def blocks_kernel_eligible(prob: BAProblem, opts: BAOptions) -> bool:
-    """Whether make_blocks runs through the ba_blocks kernel: the matvec
-    kernels are eligible and the options ask for it (JAX's rule)."""
-    return (kernels_eligible(prob, opts) and opts.pallas_blocks and
-            opts.axis_name is None)
+    No device enters: each hand-written sweep runs the CUDA kernel on the
+    card and its plain twin on the CPU."""
+    f32 = prob.points.dtype == torch.float32
+    one_device = opts.axis_name is None
+    matvec = "plain"
+    if opts.pallas_matvec and f32:
+        if prob.intrinsics.shape[0] == 1:
+            matvec = "one_group"
+        elif one_device:
+            matvec = "groups"
+    blocks = ("kernel" if matvec == "one_group" and opts.pallas_blocks and
+              one_device else "plain")
+    dense_corr = ("kernel" if opts.linear_solver == "dense_schur" and f32
+                  and one_device else "plain")
+    return KernelRoute(matvec, blocks, dense_corr)
 
 
 def bundle_adjust(prob: BAProblem, opts: BAOptions):
@@ -430,23 +395,23 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             return torch.einsum("mkp,p->mk", Ji3, vg[0])
         return torch.einsum("mkp,mp->mk", Ji3, vg[obs_group])
 
-    use_kernels = kernels_eligible(prob, opts)
-    use_group_kernels = group_kernels_eligible(prob, opts)
+    route = kernel_route(prob, opts)
     dense = opts.linear_solver == "dense_schur"
     # the dense solver's observation pairs (and, on the kernel route, their
     # layout): fixed by pt_idx_map, so found once per solve
     obs_pairs = pair_layout = None
-    if dense and dense_kernel_eligible(prob, opts):
+    if route.dense_corr == "kernel":
         obs_pairs, pair_layout = dcorr.pair_layout(prob)
     elif dense:
         obs_pairs = _point_obs_pairs(prob)
+    grouped = route.matvec == "groups"
     cam_index = pt_index = grp_index = None
-    if use_group_kernels:
+    if grouped:
         obs_group = obs_group.to(torch.int32).contiguous()
-    if use_kernels or use_group_kernels:
+    if route.matvec != "plain":
         # the ids the kernels read, with their bounds
         ids = [(obs_cam, Nc), (obs_pt, Np)]
-        if use_group_kernels:
+        if grouped:
             ids.append((obs_group, Ng))
         if M:
             # the kernels trust their indices: check them once per solve
@@ -460,11 +425,11 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         # obs_pt and obs_group: once per solve
         cam_index = fm.camera_index(obs_cam, Nc)
         pt_index = fm.point_index(obs_pt, Np)
-        if use_group_kernels:
+        if grouped:
             grp_index = fm.group_index(obs_group, Ng, P)
     blocks_fn = (functools.partial(fm.blocks, cam_index=cam_index,
                                    pt_index=pt_index)
-                 if blocks_kernel_eligible(prob, opts) else fm.blocks_plain)
+                 if route.blocks == "kernel" else fm.blocks_plain)
 
     def build_system(extr, intr, pts, r0):
         """Weighted residuals and jacobians at (extr, intr, pts); r0 are
@@ -572,46 +537,18 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
         # (products in the parameters' type, f32 sums)
         Jc_mv, Ji_mv, Jp_mv = (x.to(mv) for x in (Jc12, JiP, Jp6))
 
-        if use_kernels or use_group_kernels:
-            if opts.pallas_transposed:
-                # one transpose per damped solve; every CG iteration
-                # then reads (F, M) rows coalesced along M
-                jc_k, ji_k, jp_k = (x.T.contiguous()
-                                    for x in (Jc_mv, Ji_mv, Jp_mv))
-            else:
-                jc_k, ji_k, jp_k = Jc_mv.T, Ji_mv.T, Jp_mv.T
+        def widened():
+            """The matvec's jacobians in the parameters' type, (M, 2, k)."""
+            return (Jc_mv.to(dtype).reshape(M, 2, 6),
+                    Ji_mv.to(dtype).reshape(M, 2, P),
+                    Jp_mv.to(dtype).reshape(M, 2, 3))
 
-        if use_kernels:
-            def S_matvec(vc, vg):
-                count_dispatch("schur_matvec")
-                u, wp = fm.pass1(jc_k, ji_k, jp_k, obs_cam, obs_pt,
-                                 vc.contiguous(), vg[0].contiguous(), Np,
-                                 pt_index)
-                zp = _mat3vec(Hpp_inv, _psum_pt(wp))
-                yc, yg2 = fm.pass2(jc_k, ji_k, jp_k, obs_cam, obs_pt, u,
-                                   zp, Nc, cam_index)
-                # the kernels sum this rank's observations; the camera
-                # and group sums complete over the mesh (JAX :794-797)
-                g2 = yg2.reshape(2, P, 2)
-                yc = _psum(yc)
-                yg = _psum((g2[0, :, 0] + g2[1, :, 1])[None])
-                return yc + diag_c * vc, yg + diag_g * vg
-        elif use_group_kernels:
-            def S_matvec(vc, vg):
-                """S·v through the grouped kernels (one device, no psum)."""
-                count_dispatch("schur_matvec")
-                u, wp = fm.pass1_groups(jc_k, ji_k, jp_k, obs_cam,
-                                        obs_group, obs_pt, vc.contiguous(),
-                                        vg.contiguous(), Np, pt_index)
-                zp = _mat3vec(Hpp_inv, wp)
-                yc, yg = fm.pass2_groups(jc_k, ji_k, jp_k, obs_cam,
-                                         obs_group, obs_pt, u, zp, Nc, Ng,
-                                         cam_index, grp_index)
-                return yc + diag_c * vc, yg + diag_g * vg
-        else:
-            Jc3m = Jc_mv.to(dtype).reshape(M, 2, 6)
-            Ji3m = Ji_mv.to(dtype).reshape(M, 2, P)
-            Jp3m = Jp_mv.to(dtype).reshape(M, 2, 3)
+        J3 = None
+        if route.matvec == "plain":
+            # read by every product, so made once for the products and
+            # the preconditioner
+            J3 = widened()
+            Jc3m, Ji3m, Jp3m = J3
 
             def S_matvec(vc, vg):
                 """Plain matrix-free S·v (the "XLA matvec" config)."""
@@ -628,6 +565,44 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
                 yc = seg_cam(torch.einsum("mki,mk->mi", Jc3m, d))
                 yg = grp_reduce(Ji3m, d)
                 return yc + diag_c * vc, yg + diag_g * vg
+        else:
+            if opts.pallas_transposed:
+                # one transpose per damped solve; every CG iteration
+                # then reads (F, M) rows coalesced along M
+                jc_k, ji_k, jp_k = (x.T.contiguous()
+                                    for x in (Jc_mv, Ji_mv, Jp_mv))
+            else:
+                jc_k, ji_k, jp_k = Jc_mv.T, Ji_mv.T, Jp_mv.T
+            if grouped:
+                def pass1(vc, vg):
+                    return fm.pass1_groups(jc_k, ji_k, jp_k, obs_cam,
+                                           obs_group, obs_pt, vc,
+                                           vg.contiguous(), Np, pt_index)
+
+                def pass2(u, zp):
+                    return fm.pass2_groups(jc_k, ji_k, jp_k, obs_cam,
+                                           obs_group, obs_pt, u, zp, Nc, Ng,
+                                           cam_index, grp_index)
+            else:
+                def pass1(vc, vg):
+                    return fm.pass1(jc_k, ji_k, jp_k, obs_cam, obs_pt, vc,
+                                    vg[0].contiguous(), Np, pt_index)
+
+                def pass2(u, zp):
+                    yc, yg2 = fm.pass2(jc_k, ji_k, jp_k, obs_cam, obs_pt, u,
+                                       zp, Nc, cam_index)
+                    g2 = yg2.reshape(2, P, 2)
+                    return yc, (g2[0, :, 0] + g2[1, :, 1])[None]
+
+            def S_matvec(vc, vg):
+                """S·v through the hand-written sweeps. They sum this
+                rank's observations; the point (when replicated), camera
+                and group sums complete over the mesh (JAX :794-797)."""
+                count_dispatch("schur_matvec")
+                u, wp = pass1(vc.contiguous(), vg)
+                zp = _mat3vec(Hpp_inv, _psum_pt(wp))
+                yc, yg = pass2(u, zp)
+                return _psum(yc) + diag_c * vc, _psum(yg) + diag_g * vg
 
         def build_precond():
             eye6 = torch.eye(6, dtype=dtype, device=device)
@@ -641,9 +616,7 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             # (camera, point) pair has at most one observation); the
             # per-obs intermediates are rounded to the matvec type,
             # the inverses stay full precision
-            Jc3 = Jc_mv.to(dtype).reshape(M, 2, 6)
-            Jp3 = Jp_mv.to(dtype).reshape(M, 2, 3)
-            Ji3 = Ji_mv.to(dtype).reshape(M, 2, P)
+            Jc3, Ji3, Jp3 = J3 if J3 is not None else widened()
             H9 = round_mv(Hpp_inv[obs_pt], mv).reshape(M, 3, 3)
             U = round_mv(torch.einsum("mka,mkc->mac", Jc3, Jp3), mv)
             T = round_mv(torch.einsum("mac,mce->mae", U, H9), mv)
@@ -871,9 +844,10 @@ def _dense_schur_corr(prob: BAProblem, Jc12, JiP, Jp6, Hpp_inv, obs_pairs):
     formed for every pair of obs_pairs and reduced with index_add_ keyed
     on (cam_k, cam_l) — the JAX solver's permutation gathers and
     zero-scatter tables were a TPU workaround, and its row-chunked
-    un-flattening a guard against the TPU's tile padding. The build for
-    CPU tensors and wherever dense_kernel_eligible or the pair layout
-    refuses the kernels (dense_corr.corr), and their tests' reference."""
+    un-flattening a guard against the TPU's tile padding. The build
+    wherever kernel_route or the pair layout refuses dense_corr.corr
+    (float64, a mesh axis, cameras that span groups), and its tests'
+    reference."""
     Nc, Ng = prob.extrinsics.shape[0], prob.intrinsics.shape[0]
     M, P = Jc12.shape[0], JiP.shape[1] // 2
     dtype, device = Jc12.dtype, Jc12.device
@@ -941,128 +915,6 @@ def _dense_schur_factor_solve(Hcc, Hgg, bc, bg, lam, corr_cc, corr_cg,
     return x[:Dc].reshape(Nc, 6), x[Dc:].reshape(Ng, P)
 
 
-def build_cam_pair_tables(obs_cam, pt_idx_map, pt_idx_valid, n_cams,
-                          classes=(4, 16, 64, 256, 1024),
-                          max_entries=1 << 20, device="cpu"):
-    """The JAX package's camera-pair gather tables for its scatter-free
-    dense-Schur assembly on the TPU, built the same way (host-side numpy)
-    so that problems carry the same fields in both packages. This
-    package's dense solver does not read them.
-
-    Returns (tables, perm_fwd, perm_rev): tables is a tuple of
-    (kidx, lidx, valid) tensors; perm_fwd/perm_rev are (Nc*Nc, R) int32
-    row indices into [table rows | Nc diagonal rows | 1 zero row]."""
-    def host(x):
-        return x.cpu().numpy() if isinstance(x, torch.Tensor) else \
-            np.asarray(x)
-
-    def dev(x):
-        return torch.as_tensor(x, device=device)
-
-    idx = host(pt_idx_map)
-    val = host(pt_idx_valid)
-    Np, K = idx.shape
-    cam = host(obs_cam)[idx]
-    iu, ju = np.triu_indices(K, k=1)
-    k_e = idx[:, iu].reshape(-1)
-    l_e = idx[:, ju].reshape(-1)
-    v_e = (val[:, iu] & val[:, ju]).reshape(-1)
-    pid = (cam[:, iu].astype(np.int64) * n_cams +
-           cam[:, ju]).reshape(-1)
-    k_e, l_e, pid = k_e[v_e], l_e[v_e], pid[v_e]
-    order = np.argsort(pid, kind="stable")
-    k_e, l_e, pid = k_e[order], l_e[order], pid[order]
-    uids, starts, counts = np.unique(pid, return_index=True,
-                                     return_counts=True)
-    E, U = len(pid), len(uids)
-    caps = np.asarray(classes)
-    capmax = classes[-1]
-    cls = np.searchsorted(caps, np.minimum(np.maximum(counts, 1),
-                                           capmax))
-    cap_u = caps[cls]
-    nrows_u = -(-counts // cap_u)
-    u_of_e = np.repeat(np.arange(U), counts)
-    rank = np.arange(E) - np.repeat(starts, counts)
-    tables = []
-    row_ids = []  # ordered-pair id of every produced table row
-    for ci, cap in enumerate(classes):
-        sel_u = np.flatnonzero(cls == ci)
-        if len(sel_u) == 0:
-            continue
-        nrows = nrows_u[sel_u]
-        row_base = np.zeros(len(sel_u), np.int64)
-        np.cumsum(nrows[:-1], out=row_base[1:])
-        P_c = int(nrows.sum())
-        e_idx = np.flatnonzero(cls[u_of_e] == ci)
-        lu = np.searchsorted(sel_u, u_of_e[e_idx])
-        r = rank[e_idx]
-        row = row_base[lu] + r // cap
-        col = r % cap
-        kk = np.zeros((P_c, cap), np.int32)
-        ll = np.zeros((P_c, cap), np.int32)
-        vv = np.zeros((P_c, cap), bool)
-        kk[row, col] = k_e[e_idx]
-        ll[row, col] = l_e[e_idx]
-        vv[row, col] = True
-        # per-row pair ids (spilled groups repeat the id; ids ascend
-        # within the class, so forward-fill by running max)
-        rid = np.zeros(P_c, np.int64)
-        rid[row_base] = uids[sel_u]
-        filled = np.zeros(P_c, bool)
-        filled[row_base] = True
-        np.maximum.accumulate(np.where(filled, rid, 0), out=rid)
-        rows_per_chunk = max(1, max_entries // cap)
-        for s in range(0, P_c, rows_per_chunk):
-            e = min(s + rows_per_chunk, P_c)
-            tables.append((dev(kk[s:e]), dev(ll[s:e]), dev(vv[s:e])))
-            row_ids.append(rid[s:e])
-    n_table_rows = int(sum(len(r) for r in row_ids))
-    zero_row = n_table_rows + n_cams
-    # forward targets: table rows at their ordered-pair id, then the Nc
-    # diagonal segment rows at ids i*Nc+i
-    diag_ids = np.arange(n_cams, dtype=np.int64) * (n_cams + 1)
-    fwd_ids = np.concatenate([np.concatenate(row_ids)
-                              if row_ids else np.zeros(0, np.int64),
-                              diag_ids])
-    perm_fwd, _ = _build_idx_map(fwd_ids, n_cams * n_cams, zero_row,
-                                 bucket_min=1)
-    # reverse targets (transpose): table rows only, at (b*Nc + a)
-    tab_ids = fwd_ids[:n_table_rows]
-    rev_ids = (tab_ids % n_cams) * n_cams + tab_ids // n_cams
-    perm_rev, _ = _build_idx_map(rev_ids, n_cams * n_cams, zero_row,
-                                 bucket_min=1)
-    return tuple(tables), dev(perm_fwd), dev(perm_rev)
-
-
-def add_cam_pair_tables(prob: BAProblem,
-                        classes=(4, 16, 64, 256, 1024),
-                        max_entries=1 << 20,
-                        build_cam_maps=True) -> BAProblem:
-    """Attach the camera-pair tables and, with build_cam_maps, the
-    per-camera observation tables, as the JAX package does (host-side;
-    call after add_point_obs_map / pad_ba_problem). Accepted for parity:
-    this package's dense solver reads neither."""
-    if prob.pt_idx_map is None:
-        raise ValueError("add_cam_pair_tables requires pt_idx_map — "
-                         "call add_point_obs_map first")
-    dev = prob.obs_cam.device
-    tables, perm_fwd, perm_rev = build_cam_pair_tables(
-        prob.obs_cam, prob.pt_idx_map, prob.pt_idx_valid,
-        prob.extrinsics.shape[0], classes=classes,
-        max_entries=max_entries, device=dev)
-    out = prob._replace(cam_pair_tables=tables,
-                        cam_pair_perm_fwd=perm_fwd,
-                        cam_pair_perm_rev=perm_rev)
-    if build_cam_maps and prob.cam_idx_map is None:
-        M = prob.obs_cam.shape[0]
-        cm_, cv_ = _build_idx_map(
-            prob.obs_cam.cpu().numpy(), prob.extrinsics.shape[0], M - 1,
-            obs_valid=prob.obs_mask.cpu().numpy())
-        out = out._replace(cam_idx_map=torch.as_tensor(cm_, device=dev),
-                           cam_idx_valid=torch.as_tensor(cv_, device=dev))
-    return out
-
-
 # --------------------------------------------------------------------------
 # problem preparation (host side)
 
@@ -1092,20 +944,11 @@ def pad_obs_to_multiple(prob: BAProblem, multiple: int) -> BAProblem:
 
 
 def add_pallas_matvec_plan(prob: BAProblem, block: int = 1024) -> BAProblem:
-    """Attach the fused-matvec plan (host side). Requires point-sorted
-    observations and M % block == 0 (use pad_obs_to_multiple first).
-    The solver runs S·v through the kernels when BAOptions.pallas_matvec
-    is set and the plan is attached."""
-    plan = fm.MatvecPlan(prob.obs_cam.cpu().numpy(),
-                         prob.obs_pt.cpu().numpy(),
-                         prob.extrinsics.shape[0], prob.points.shape[0],
-                         block=block)
-    dev = prob.obs_cam.device
-    return prob._replace(
-        pmv_cam_tiles=torch.as_tensor(plan.cam_tiles, device=dev),
-        pmv_lpt_tiles=torch.as_tensor(plan.local_pt, device=dev),
-        pmv_p0=torch.as_tensor(plan.tile_p0, device=dev),
-        pmv_window=torch.zeros(plan.W, dtype=torch.int8, device=dev))
+    """Returns prob unchanged. The JAX package attaches its fused
+    matvec's TPU tile plan here; no CUDA kernel reads one, and
+    kernel_route decides the route from options and shapes alone. Kept
+    under this name and signature for its callers."""
+    return prob
 
 
 def _build_idx_map(indices: np.ndarray, num_segments: int,
@@ -1150,13 +993,10 @@ def add_point_obs_map(prob: BAProblem, bucket_min: int = 4) -> BAProblem:
 
 def pad_ba_problem(prob: BAProblem, minimum: int = 8,
                    sort_by_point: bool = True,
-                   build_reduction_maps: bool = False,
-                   sort_by_camera: bool = False,
                    build_point_obs_map: bool = False) -> BAProblem:
     """Sort observations by point and pad every axis to power-of-two
     buckets (cameras >= minimum, points >= 64, observations >= 256);
-    padding is masked out. The optional TPU reduction maps are built as
-    in the JAX package (and not read by this solver)."""
+    padding is masked out."""
     if sort_by_point and prob.obs_pt.shape[0] > 0:
         order = torch.argsort(prob.obs_pt, stable=True)
         prob = prob._replace(
@@ -1184,25 +1024,6 @@ def pad_ba_problem(prob: BAProblem, minimum: int = 8,
     # pad with the last point index so obs_pt stays non-decreasing
     obs_pt_p = padrows(prob.obs_pt, Mb, Npb - 1)
 
-    maps = {}
-    if sort_by_camera and M > 0 and not build_reduction_maps:
-        perm = np.argsort(obs_cam_p.cpu().numpy(), kind="stable")
-        maps.update(
-            cam_sort_perm=torch.as_tensor(perm.astype(np.int32),
-                                          device=dev),
-            obs_cam_sorted=torch.as_tensor(
-                obs_cam_p.cpu().numpy()[perm].astype(np.int32),
-                device=dev))
-    if build_reduction_maps and M > 0:
-        cm_, cv_ = _build_idx_map(obs_cam_p[:M].cpu().numpy(), Ncb, Mb - 1)
-        gm_, gv_ = _build_idx_map(obs_group_p[:M].cpu().numpy(), Ngb,
-                                  Mb - 1)
-        maps = dict(
-            cam_idx_map=torch.as_tensor(cm_, device=dev),
-            cam_idx_valid=torch.as_tensor(cv_, device=dev),
-            grp_idx_map=torch.as_tensor(gm_, device=dev),
-            grp_idx_valid=torch.as_tensor(gv_, device=dev))
-
     out = BAProblem(
         extrinsics=padrows(prob.extrinsics, Ncb),
         intrinsics=padrows(prob.intrinsics, Ngb, 1.0),
@@ -1214,7 +1035,6 @@ def pad_ba_problem(prob: BAProblem, minimum: int = 8,
         obs_mask=padrows(prob.obs_mask, Mb, False),
         cam_mask=padrows(cam_mask, Ncb, False),
         point_mask=padrows(point_mask, Npb, False),
-        **maps,
     )
     if build_point_obs_map:
         out = add_point_obs_map(out)
@@ -1229,31 +1049,24 @@ def bundle_adjust_host_f64(prob: BAProblem, opts: BAOptions):
     has no float64. The card computes in float64, so this casts every
     float field to float64 and solves on the problem's own device (the
     card by default). The kernels take float32 only, so this solve runs
-    the plain matvec and the plain blocks, as JAX's eligibility rule
-    decides (kernels_eligible is False in float64). Returns
-    (BAProblem in float64, BASummary)."""
+    the plain sweeps (kernel_route, as JAX's rule). Returns (BAProblem in
+    float64, BASummary)."""
     def to64(x):
-        if x is None:
-            return None
-        if isinstance(x, tuple):
-            return tuple(to64(e) for e in x)
-        return x.to(torch.float64) if x.is_floating_point() else x
+        if x is None or not x.is_floating_point():
+            return x
+        return x.to(torch.float64)
 
     return bundle_adjust(BAProblem(*[to64(f) for f in prob]), opts)
 
 
 def bundle_adjust_bucketed(prob: BAProblem, opts: BAOptions):
     """Pad to buckets (sorted by point), attach the point-observation map
-    when the options ask for the dense Schur solver and the fused-matvec
-    plan when they ask for the kernels and the padded problem is
-    eligible, solve, and slice back."""
+    when the options ask for the dense Schur solver, solve, and slice
+    back."""
     Nc, Np = prob.extrinsics.shape[0], prob.points.shape[0]
     padded = pad_ba_problem(
         prob, build_point_obs_map=opts.linear_solver == "dense_schur")
     opts = dataclasses.replace(opts, point_indices_sorted=True)
-    if (opts.pallas_matvec and padded.intrinsics.shape[0] == 1 and
-            padded.obs_cam.shape[0] % 1024 == 0):
-        padded = add_pallas_matvec_plan(padded, block=1024)
     out, summary = bundle_adjust(padded, opts)
     result = prob._replace(extrinsics=out.extrinsics[:Nc],
                            intrinsics=out.intrinsics[

@@ -44,78 +44,21 @@ observations in group order, each group's segment and, on CUDA, stage A's
 (M, P) rows), built once per solve like the other two. Their launches
 count under "schur_pass1_groups" and "schur_pass2_groups".
 
-The kernels use the global point ids directly: the TPU's tile plan
-(tile_p0, local_pt, the point window) exists because VMEM could not
+The kernels use the global point ids directly and take any number of
+observations, in any order: the JAX package's tile plan (tile_p0,
+local_pt, the point window) exists because a TPU core's VMEM could not
 hold a whole point table, and a GPU block reads zp[obs_pt] from device
-memory. MatvecPlan and PlanShapes are kept, computed exactly as in the
-JAX package, because the problem preparation attaches the plan and
-the solver decides kernel eligibility from it.
+memory. So nothing here needs one; bundle_adjustment.kernel_route picks
+these sweeps from options and shapes alone.
 """
 from __future__ import annotations
 
 import functools
 from typing import NamedTuple, Optional
 
-import numpy as np
 import torch
 
 from ...utils.dispatch import count_dispatch, host_sync
-
-
-def _round_up(x, m):
-    return -(-x // m) * m
-
-
-class MatvecPlan:
-    """Host-side static per-problem data for the fused matvec (same
-    fields and values as the JAX package's MatvecPlan)."""
-
-    def __init__(self, obs_cam, obs_pt, n_cams, n_pts, block=512,
-                 force_window=None):
-        obs_cam = np.asarray(obs_cam)
-        obs_pt = np.asarray(obs_pt)
-        M = obs_cam.shape[0]
-        if M % block:
-            raise ValueError(f"M={M} is not a multiple of block={block}")
-        if np.any(np.diff(obs_pt) < 0):
-            raise ValueError("observations must be sorted by point")
-        self.M, self.B = M, block
-        self.G = M // block
-        self.Nc = n_cams
-        self.Np = n_pts
-        # point window per tile: the largest point span of any tile,
-        # with p0 8-aligned (+8 covers the alignment shift)
-        p0 = (obs_pt[::block].astype(np.int32) // 8) * 8
-        rel_raw = obs_pt.reshape(self.G, block) - p0[:, None]
-        self.W = int(_round_up(int(rel_raw.max()) + 1, 8))
-        if force_window is not None:
-            if force_window < self.W:
-                raise ValueError(f"force_window={force_window} < W={self.W}")
-            self.W = int(force_window)
-        self.Np_pad = _round_up(n_pts + self.W, 8)
-        self.tile_p0 = np.minimum(p0, self.Np_pad - self.W)
-        self.cam_chunk = (_round_up(n_cams, 8) if n_cams <= 1024
-                          else 256)
-        self.cam_pad = _round_up(n_cams, self.cam_chunk)
-        rel = (obs_pt.reshape(self.G, block) - self.tile_p0[:, None])
-        if not ((rel >= 0).all() and (rel < self.W).all()):
-            raise ValueError("point window does not cover a tile")
-        self.local_pt = rel.astype(np.int32)
-        self.cam_tiles = obs_cam.reshape(self.G, block).astype(np.int32)
-
-
-class PlanShapes:
-    """Shape-only plan view (the plan's arrays live in BAProblem
-    fields)."""
-
-    def __init__(self, G, B, Nc, Np, W):
-        self.G, self.B, self.W = G, B, W
-        self.M = G * B
-        self.Nc, self.Np = Nc, Np
-        self.cam_chunk = (_round_up(Nc, 8) if Nc <= 1024
-                          else 256)
-        self.cam_pad = _round_up(Nc, self.cam_chunk)
-        self.Np_pad = _round_up(Np + W, 8)
 
 
 # ---------------------------------------------------------------------------
@@ -255,7 +198,7 @@ def point_index(obs_pt, n_pts):
     """Pass 1's and ba_blocks' point index: start, where each point's
     segment of the point order begins (start[-1] = M), and order, the
     observations sorted by point, stably, or None when obs_pt is already
-    sorted (the solver's case: MatvecPlan requires it), where the point
+    sorted (the solver's case after pad_ba_problem), where the point
     order is the storage order. On obs_pt's device; three host syncs
     (sync.point_order, sync.segment_count)."""
     M = obs_pt.shape[0]
