@@ -15,6 +15,9 @@ main paths:
   through them (`groups_kernel`, `ba_groups`);
 * the dense Schur solver's correction build (csrc/dense_corr.cu) against
   its plain build at BAL Dubrovnik-356's shapes (`dense_corr_kernel`);
+* the SCHUR_JACOBI preconditioner's corrections (csrc/schur_precond.cu)
+  against their plain twin at BAL Final's shapes (a group per camera)
+  and Venice's (one group) (`ba_precond`);
 * the rest of the bundle adjuster at the same scale: `pcg_fast_pblocks`
   (make_blocks through the ba_blocks kernel), the reconstruction-level
   entry points on a Reconstruction built view by view, the dense-Schur
@@ -144,6 +147,7 @@ from theiasfm_tpu_torch.sfm.ba import (BAOptions, bundle_adjust,
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import dense_corr as dcorr
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
+from theiasfm_tpu_torch.sfm.ba import schur_precond as spc
 from theiasfm_tpu_torch.sfm.pipeline import geometric_verification as gvm
 from theiasfm_tpu_torch.parallel import (make_mesh,
                                          estimate_positions_sharded,
@@ -228,6 +232,10 @@ DENSE_SOURCE = "theiasfm_tpu_torch/csrc/dense_corr.cu"
 # BAL Dubrovnik-356 (benchmark/configs/bal_dubrovnik356_exact.json):
 # cameras, points, observations; a group per camera, P = 3
 DUBROVNIK = (356, 226_730, 1_255_268)
+PRECOND_SOURCE = "theiasfm_tpu_torch/csrc/schur_precond.cu"
+# BAL Venice (benchmark/configs/bal_venice1778.json): cameras, points,
+# observations; one intrinsics group, P = 3
+VENICE = (1_778, 993_923, 5_001_946)
 
 
 T0 = time.perf_counter()
@@ -241,10 +249,11 @@ def emit(phase, **fields):
 
 def launch_counts():
     """The launch counts of utils/dispatch since the last reset, less the
-    bundle adjuster's host reads, LM steps and dense-solver counts
-    (sync.*, lm.*, dense.*), which are not launches."""
+    bundle adjuster's host reads, LM steps, dense-solver counts and
+    preconditioner builds (sync.*, lm.*, dense.*, precond.*), which are
+    not launches."""
     return {k: v for k, v in dispatch_counts().items()
-            if not k.startswith(("sync.", "lm.", "dense."))}
+            if not k.startswith(("sync.", "lm.", "dense.", "precond."))}
 
 
 def check(cond, msg):
@@ -368,15 +377,17 @@ def _groups_bytes_ops(name, js, M, Nc, Ng, Np, P):
     return nbytes, ops
 
 
-def _final_ids(g):
-    """Point-sorted ids at BAL Final's shapes: each point seen 6 or 7
-    times, cameras drawn per observation, the padding to a multiple of
-    512 repeating the last point (as pad_obs_to_multiple does)."""
-    Nc, Np, n = FINAL_NC, FINAL_NP, FINAL_OBS
+def _final_ids(g, Nc=FINAL_NC, Np=FINAL_NP, n=FINAL_OBS):
+    """Point-sorted ids at BAL Final's shapes (or another problem's
+    counts): each point seen n // Np times or once more, cameras drawn
+    per observation, the padding to a multiple of 512 repeating the last
+    point (as pad_obs_to_multiple does)."""
     M = n + (-n) % 512
-    seven = torch.randperm(Np, device="cuda", generator=g) < n - 6 * Np
+    base = n // Np
+    more = torch.randperm(Np, device="cuda", generator=g) < n - base * Np
     obs_pt = torch.repeat_interleave(
-        torch.arange(Np, dtype=torch.int32, device="cuda"), 6 + seven.long())
+        torch.arange(Np, dtype=torch.int32, device="cuda"),
+        base + more.long())
     obs_pt = torch.cat([obs_pt, obs_pt.new_full((M - n,), Np - 1)])
     obs_cam = torch.randint(0, Nc, (M,), dtype=torch.int32, device="cuda",
                             generator=g)
@@ -628,6 +639,89 @@ def phase_dense_corr_kernel(timer):
                bound_by="bytes" if t_bytes >= t_ops else "operations",
                kernel_ms=per_kernel)
     emit("dense_corr_kernel", **res)
+    return res
+
+
+def _precond_bytes_ops(M, Nc, Np, P):
+    """benchmark/metrics/precond_roofline.py's count of one build, bf16
+    jacobians."""
+    tri = P * (P + 1) // 2
+    return (M * ((12 + 2 * P + 6) * 2 + 8) + 36 * Np + 288 * Nc,
+            M * (2 * (153 + 15 * P + 3 * tri) + 21 + tri))
+
+
+def phase_ba_precond(timer):
+    """The SCHUR_JACOBI corrections through schur_precond.corr against
+    corr_plain at BAL Final's shapes (28,987,904 observations, a group
+    per camera) and Venice's (5,002,240, one group), P = 3, bf16 (F, M)
+    jacobians as the cells run them: max |kernel - plain| <= TOL[bf16] *
+    max |plain| for each table, two builds give the same bits; the median
+    ms of the kernel (L2 flushed before each call, and back to back) and
+    of the plain twin, the bound, and each kernel's device ms from the
+    profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    res = {}
+    g = torch.Generator("cuda").manual_seed(23)
+    P = FINAL_P
+    for shape, (Nc, Np, n), Ng in (
+            ("final", (FINAL_NC, FINAL_NP, FINAL_OBS), FINAL_NC),
+            ("venice", VENICE, 1)):
+        obs_cam, obs_pt = _final_ids(g, Nc, Np, n)
+        M = obs_pt.shape[0]
+        jac = [torch.randn(F, M, device="cuda", generator=g).bfloat16()
+               for F in (12, 2 * P, 6)]
+        Jp3 = jac[2].float().T.reshape(M, 2, 3)
+        Hpp9 = torch.zeros((Np, 9), device="cuda").index_add_(
+            0, obs_pt, torch.einsum("mka,mkb->mab", Jp3, Jp3).reshape(M, 9))
+        hinv = ba._inv3_flat(Hpp9 * 1.01, eps_diag=1e-3)
+        del Jp3, Hpp9
+        args = (*jac, obs_pt, hinv, Nc, Ng, fm.camera_index(obs_cam, Nc),
+                fm.group_index(obs_cam, Ng, P) if Ng > 1 else None)
+
+        def kern():
+            return spc.corr(*args)
+
+        def plain():
+            return spc.corr_plain(*args)
+        out, again = kern(), kern()
+        ref = plain()
+        torch.cuda.synchronize()
+        check(all(map(torch.equal, out, again)),
+              f"ba_precond {shape}: not repeatable")
+        errs = {}
+        for key, got, want in zip(("cc", "gg"), out, ref):
+            check(bool(torch.isfinite(got).all()),
+                  f"ba_precond {shape} {key}: not finite")
+            err = (got - want).abs().max().item()
+            scale = want.abs().max().item()
+            errs[key] = err / max(scale, 1e-30)
+            check(err <= TOL[torch.bfloat16] * scale,
+                  f"ba_precond {shape} {key}: max abs err {err} > "
+                  f"{TOL[torch.bfloat16]} * {scale}")
+        del out, again, ref
+        nbytes, ops = _precond_bytes_ops(M, Nc, Np, P)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                kern()
+            torch.cuda.synchronize()
+        per_kernel = {}
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            if "precond_" in e.key:
+                per_kernel[e.key[:60]] = us / 5 / 1e3
+        res[shape] = dict(
+            M=M, Nc=Nc, Ng=Ng, Np=Np, P=P, rel_err=errs,
+            tol_rel=TOL[torch.bfloat16], ms=timer.ms(kern),
+            ms_back_to_back=timer.ms(kern, cold=False),
+            plain_ms=timer.ms(plain, reps=5), bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            kernel_ms=per_kernel)
+        del args, jac, hinv, obs_cam, obs_pt
+        torch.cuda.empty_cache()
+    emit("ba_precond", **res)
     return res
 
 
@@ -895,6 +989,9 @@ def phase_ba_main():
         torch.cuda.reset_peak_memory_stats()
         _, s, sec, counts = _solve(prob, opts)
         n_sv = _counts_check(counts, f"ba_main[{layout}]")
+        check(counts.get("precond_kernel", 0) == s.num_iterations,
+              f"ba_main[{layout}]: {counts.get('precond_kernel', 0)} "
+              f"schur_precond launches for {s.num_iterations} iterations")
         c0, c1 = float(s.initial_cost), float(s.final_cost)
         check(np.isfinite(c1) and c1 < 0.5 * c0,
               f"ba_main[{layout}]: cost {c0} -> {c1} did not halve")
@@ -907,7 +1004,8 @@ def phase_ba_main():
              schur_products=n_sv,
              schur_products_per_lm_iter=n_sv / s.num_iterations,
              peak_device_gib=torch.cuda.max_memory_allocated() / 2**30,
-             launches={k: counts[k] for k in ("schur_pass1", "schur_pass2")})
+             launches={k: counts[k] for k in ("schur_pass1", "schur_pass2",
+                                              "precond_kernel")})
 
     # f32, exact CG: the kernels against the plain matvec on the card
     exact = dataclasses.replace(FAST_PT, matvec_bf16=False, cg_eta=0.0,
@@ -957,6 +1055,9 @@ def phase_ba_groups():
         "schur_pass1_groups", "schur_pass2_groups")) and
         not any(k in counts for k in ("schur_pass1", "schur_pass2")),
         f"ba_groups: launches {counts} for {n} Schur products")
+    check(counts.get("precond_kernel", 0) == s.num_iterations,
+          f"ba_groups: {counts.get('precond_kernel', 0)} schur_precond "
+          f"launches for {s.num_iterations} iterations")
     c0, c1 = float(s.initial_cost), float(s.final_cost)
     check(np.isfinite(c1) and c1 < 0.5 * c0,
           f"ba_groups: cost {c0} -> {c1} did not halve")
@@ -976,7 +1077,8 @@ def phase_ba_groups():
          initial_cost=c0, final_cost=c1, iterations=s.num_iterations,
          wall_s=sec, schur_products=n,
          launches={k: counts[k] for k in ("schur_pass1_groups",
-                                          "schur_pass2_groups")},
+                                          "schur_pass2_groups",
+                                          "precond_kernel")},
          exact_kernel_final_cost=ck, exact_plain_final_cost=cp,
          rel_diff=rel, tol_rel=1e-3)
     check(rel <= 1e-3, f"grouped and plain solves disagree: {ck} vs {cp}")
@@ -4955,6 +5057,7 @@ def main():
     bres = phase_blocks_kernel(timer)
     gres = phase_groups_kernel(timer)
     dres = phase_dense_corr_kernel(timer)
+    pres = phase_ba_precond(timer)
     mres = phase_matcher_kernels(timer)
     runs = phase_ba_main()
     group_runs = phase_ba_groups()
@@ -5024,6 +5127,20 @@ def main():
         ms=dres["ms"], plain_ms=dres["plain_ms"],
         bound_ms=dres["bound_ms"], bound_by=dres["bound_by"],
         library_ms=None, shape="dubrovnik f32, a group per camera"))
+    summary.append(dict(
+        name="schur_precond", route="cuda", source=PRECOND_SOURCE,
+        replaces="none: the JAX package builds these blocks with XLA",
+        launches=runs["t"]["precond_kernel"],
+        groups_launches=group_runs["precond_kernel"],
+        max_abs_err=max(e for r in pres.values()
+                        for e in r["rel_err"].values()),
+        ms=pres["final"]["ms"], plain_ms=pres["final"]["plain_ms"],
+        bound_ms=pres["final"]["bound_ms"],
+        bound_by=pres["final"]["bound_by"], library_ms=None,
+        shape="final bf16, a group per camera",
+        venice_ms=pres["venice"]["ms"],
+        venice_plain_ms=pres["venice"]["plain_ms"],
+        venice_bound_ms=pres["venice"]["bound_ms"]))
     for name, shape, line, launches, extra in (
             ("top2_match", "frontend", 120, n_batched,
              dict(incremental_launches=n_incr,

@@ -212,11 +212,18 @@ def test_shared_group_route_calls_pass1_pass2_with_the_indices(monkeypatch):
 def test_grouped_route_matches_the_plain_route(monkeypatch):
     """A group per camera (final): every product calls pass1_groups with
     the point index and pass2_groups with the camera and group indices,
-    and the solve gives what the plain S_matvec gives."""
+    and the solve gives what the plain S_matvec gives. Both solves build
+    the preconditioner plainly: its kernel route sums and mirrors the
+    blocks' upper triangles, which moves the steps of a CG cut at 10
+    products (tests/test_torch_precond.py holds the two builds to each
+    other)."""
     prob, opts = _case("final", iterations=2)
     plain_opts = dataclasses.replace(opts, pallas_matvec=False)
     assert ba.kernel_route(prob, plain_opts).matvec == "plain"
     plain, plain_summary = ba.bundle_adjust(prob, plain_opts)
+    route = ba.kernel_route
+    monkeypatch.setattr(ba, "kernel_route", lambda p, o: route(
+        p, o)._replace(precond="plain"))
     calls = []
     _spy(monkeypatch, calls, "pass1", refuse=True)
     _spy(monkeypatch, calls, "pass2", refuse=True)

@@ -54,9 +54,10 @@ def _params(p):
 
 
 def _launch_counters():
-    """The counters set, less the solver's host reads and LM steps
-    (sync.*, lm.*)."""
-    return {k for k in dispatch_counts() if not k.startswith(("sync.", "lm."))}
+    """The counters set, less the solver's host reads, LM steps and
+    preconditioner builds (sync.*, lm.*, precond.*)."""
+    return {k for k in dispatch_counts()
+            if not k.startswith(("sync.", "lm.", "precond."))}
 
 
 # ------------------------------------------------------- exact, f64
@@ -231,37 +232,46 @@ def test_bucketed_matches_jax():
 # one intrinsics group (the Venice cell's), a group per camera (Final's)
 _VENICE = dict(pallas_matvec=True, pallas_blocks=True, matvec_bf16=True)
 ROUTES = [
-    ("venice", {}, {}, ("one_group", "kernel", "plain")),
-    ("venice", {}, {"pallas_blocks": False}, ("one_group", "plain", "plain")),
-    ("final", {}, {}, ("groups", "plain", "plain")),
-    ("venice", {"dtype": torch.float64}, {}, ("plain", "plain", "plain")),
-    ("venice", {}, {"pallas_matvec": False}, ("plain", "plain", "plain")),
-    ("venice", {}, {"axis_name": "obs"}, ("one_group", "plain", "plain")),
-    ("final", {}, {"axis_name": "obs"}, ("plain", "plain", "plain")),
+    ("venice", {}, {}, ("one_group", "kernel", "plain", "kernel")),
+    ("venice", {}, {"pallas_blocks": False},
+     ("one_group", "plain", "plain", "kernel")),
+    ("final", {}, {}, ("groups", "plain", "plain", "kernel")),
+    ("venice", {"dtype": torch.float64}, {},
+     ("plain", "plain", "plain", "plain")),
+    ("venice", {}, {"pallas_matvec": False},
+     ("plain", "plain", "plain", "plain")),
+    ("venice", {}, {"axis_name": "obs"},
+     ("one_group", "plain", "plain", "plain")),
+    ("final", {}, {"axis_name": "obs"}, ("plain", "plain", "plain", "plain")),
     ("final", {}, {"linear_solver": "dense_schur", "pallas_matvec": False},
-     ("plain", "plain", "kernel")),
+     ("plain", "plain", "kernel", "plain")),
     ("final", {"dtype": torch.float64},
      {"linear_solver": "dense_schur", "pallas_matvec": False},
-     ("plain", "plain", "plain")),
+     ("plain", "plain", "plain", "plain")),
     ("final", {}, {"linear_solver": "dense_schur", "pallas_matvec": False,
-                   "axis_name": "obs"}, ("plain", "plain", "plain")),
+                   "axis_name": "obs"}, ("plain", "plain", "plain", "plain")),
     ("venice", {}, {"linear_solver": "dense_schur"},
-     ("one_group", "kernel", "kernel")),
-    ("venice", {"device": "meta"}, {}, ("one_group", "kernel", "plain")),
+     ("one_group", "kernel", "kernel", "plain")),
+    ("venice", {"device": "meta"}, {},
+     ("one_group", "kernel", "plain", "kernel")),
+    ("final", {}, {"preconditioner": "block_diag"},
+     ("groups", "plain", "plain", "plain")),
 ]
 
 
 @pytest.mark.parametrize("groups,problem,options,route", ROUTES, ids=[
     "venice", "venice-no-blocks", "final", "f64", "matvec-off",
     "one-group-mesh", "groups-mesh", "dense-f32", "dense-f64", "dense-mesh",
-    "dense-pallas-options", "no-device-condition"])
+    "dense-pallas-options", "no-device-condition", "block-diag"])
 def test_kernel_route(groups, problem, options, route):
     """kernel_route from options and shapes: S·v one_group with
     pallas_matvec, float32 and one group (under a mesh axis too), groups
     with several groups on one device, else plain; ba_blocks on the
     one-group route with pallas_blocks on one device; the dense
     corrections' kernel route for the dense solver in float32 on one
-    device. The tensors' device does not enter."""
+    device; the SCHUR_JACOBI corrections' kernel route for PCG where S·v
+    takes a kernel route on one device. The tensors' device does not
+    enter."""
     p = make_problem(4, 16, 2, dtype=problem.get("dtype", torch.float32),
                      device="cpu")
     if "device" in problem:

@@ -3,8 +3,9 @@ the Schur-matvec passes (csrc/schur_matvec.cu, sfm/ba/fused_matvec.py)
 and their grouped twins (csrc/schur_groups.cu),
 the normal-equation blocks sweep (csrc/ba_blocks.cu, fused_matvec.blocks),
 the dense Schur solver's correction build (csrc/dense_corr.cu,
-sfm/ba/dense_corr.py) and the top-2 matcher (csrc/top2_match.cu,
-matching/fused_matcher.py).
+sfm/ba/dense_corr.py), the SCHUR_JACOBI preconditioner's corrections
+(csrc/schur_precond.cu, sfm/ba/schur_precond.py) and the top-2 matcher
+(csrc/top2_match.cu, matching/fused_matcher.py).
 
 This file imports neither JAX nor the JAX package, so it runs on a GPU
 machine without JAX; the repo's conftest imports JAX, so skip it there:
@@ -22,6 +23,7 @@ from theiasfm_tpu_torch.bench_problem import make_problem
 from theiasfm_tpu_torch.sfm.ba import bundle_adjustment as ba
 from theiasfm_tpu_torch.sfm.ba import dense_corr as dc
 from theiasfm_tpu_torch.sfm.ba import fused_matvec as fm
+from theiasfm_tpu_torch.sfm.ba import schur_precond as spc
 from theiasfm_tpu_torch.utils import dispatch_counts, reset_dispatch_counts
 
 
@@ -390,6 +392,154 @@ def test_bucketed_one_group_launches_the_kernels_on_card():
     assert c["schur_matvec"] > 0
     assert c.get("schur_pass1", 0) == c.get("schur_pass2", 0) == \
         c["schur_matvec"]
+    assert float(s.final_cost) < float(s.initial_cost)
+
+
+# -------------------------------------------------------- schur_precond
+
+def _precond_inputs(rng, M, Nc, Np, P, sorted_pts, dtype, groups):
+    """_group_inputs with groups "one" (Ng = 1) or "cam" (a group per
+    camera), and the Hpp⁻¹ of the point blocks the jacobians give:
+    (schur_precond.corr's arguments after the jacobians, Ng)."""
+    x = _group_inputs(rng, M, Nc, Np, P, sorted_pts, dtype,
+                      1 if groups == "one" else "cam")
+    oc, og, op = x["ids"]
+    Jp3 = x["js_t"][2].float().T.reshape(M, 2, 3)
+    Hpp9 = torch.zeros((Np, 9), device="cuda").index_add_(
+        0, op, torch.einsum("mka,mkb->mab", Jp3, Jp3).reshape(M, 9))
+    hinv = ba._inv3_flat(Hpp9 * 1.01, eps_diag=1e-3)
+    Ng = x["Ng"]
+    grp_index = x["index"][2] if Ng > 1 else None
+    return x, (op, hinv, Nc, Ng, x["index"][1], grp_index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+@pytest.mark.parametrize("sorted_pts", [True, False],
+                         ids=["sorted", "unsorted"])
+@pytest.mark.parametrize("P", [1, 3])
+@pytest.mark.parametrize("groups", ["one", "cam"])
+def test_schur_precond_matches_plain_on_card(bf16, sorted_pts, P, groups):
+    """The kernel against corr_plain on the same card tensors, (F, M) rows
+    and strided .T views of (M, F) ones, one group (stage A's block
+    partials) and a group per camera (the group segments). Tolerance
+    relative to max|ref| per table: the segments and the block partials
+    reorder the f32 sums (1e-4), and under bf16 a rounded V or T may land
+    one bf16 ulp apart where the kernel's FMA and the plain einsum round
+    a product differently (1e-2, as for the other kernels)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Nc, Np = 6000, 300, 900
+    x, rest = _precond_inputs(np.random.default_rng(5), M, Nc, Np, P,
+                              sorted_pts,
+                              torch.bfloat16 if bf16 else torch.float32,
+                              groups)
+    tol = 1e-2 if bf16 else 1e-4
+    for js in (x["js_t"], x["js_row"]):
+        reset_dispatch_counts()
+        got = spc.corr(*js, *rest)
+        ref = spc.corr_plain(*js, *rest)
+        torch.cuda.synchronize()
+        assert dispatch_counts() == {"precond_kernel": 1}
+        for g, f in zip(got, ref):
+            assert g.shape == f.shape and g.dtype == torch.float32
+            assert torch.equal(g, g.transpose(1, 2))
+            err = (g - f).abs().max().item()
+            assert err <= tol * f.abs().max().item(), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", ["one", "cam"])
+@pytest.mark.parametrize("Nc", [40, 12000], ids=["nc40", "nc12000"])
+def test_schur_precond_bitwise_repeatable_on_card(groups, Nc):
+    """No atomics: two launches on the same inputs give the same bits,
+    with the indices built once and built anew; a camera without
+    observations gets exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Np, P = 60_000, 15_000, 3
+    x, rest = _precond_inputs(np.random.default_rng(9), M, Nc, Np, P, True,
+                              torch.bfloat16, groups)
+    oc, og, op = x["ids"]
+    _, hinv, _, Ng, _, _ = rest
+    fresh = (op, hinv, Nc, Ng, fm.camera_index(oc, Nc),
+             fm.group_index(og, Ng, P) if Ng > 1 else None)
+    a = spc.corr(*x["js_t"], *rest)
+    b = spc.corr(*x["js_t"], *rest)
+    c = spc.corr(*x["js_t"], *fresh)
+    torch.cuda.synchronize()
+    for p, q, r in zip(a, b, c):
+        assert torch.equal(p, q) and torch.equal(p, r)
+    seen = torch.zeros(Nc, dtype=torch.bool, device="cuda")
+    seen[oc.long()] = True
+    assert not a[0][~seen].any()
+
+
+@pytest.mark.cuda
+def test_schur_precond_rejects_bad_inputs_on_card():
+    """Wrong device, type, shape, P above 10, indices built for other
+    cameras or groups, a missing group index: each raises."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, Nc, Np, P = 256, 8, 40, 2
+    x, rest = _precond_inputs(np.random.default_rng(2), M, Nc, Np, P, True,
+                              torch.float32, "cam")
+    js = x["js_t"]
+    op, hinv, _, Ng, cam_index, grp_index = rest
+    spc.corr(*js, *rest)
+    with pytest.raises(RuntimeError):
+        spc.corr(*js, op, hinv.cpu(), Nc, Ng, cam_index, grp_index)
+    with pytest.raises(RuntimeError):
+        spc.corr(*js, op, hinv, Nc, Ng,
+                 fm.camera_index(x["ids"][0].cpu(), Nc), grp_index)
+    with pytest.raises(TypeError):
+        spc.corr(js[0].double(), *js[1:], *rest)
+    with pytest.raises(TypeError):
+        spc.corr(js[0], js[1].bfloat16(), js[2], *rest)
+    with pytest.raises(ValueError):
+        spc.corr(js[0][:11], *js[1:], *rest)
+    with pytest.raises(ValueError):
+        spc.corr(js[0], torch.zeros(22, M, device="cuda"), js[2], *rest)
+    with pytest.raises(ValueError):
+        spc.corr(*js, op, hinv.double(), Nc, Ng, cam_index, grp_index)
+    with pytest.raises(ValueError):
+        spc.corr(*js, op.long(), hinv, Nc, Ng, cam_index, grp_index)
+    with pytest.raises(ValueError):
+        spc.corr(*js, op, hinv, Nc + 1, Ng, cam_index, grp_index)
+    with pytest.raises(ValueError):
+        spc.corr(*js, op, hinv, Nc, Ng, None, grp_index)
+    with pytest.raises(ValueError):
+        spc.corr(*js, op, hinv, Nc, Ng, cam_index, None)
+    with pytest.raises(ValueError):
+        spc.corr(*js, op, hinv, Nc, Ng + 1, cam_index, grp_index)
+    with pytest.raises(ValueError):
+        spc.corr(*js, op, hinv, Nc, 0, cam_index, grp_index)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", ["one", "cam"])
+def test_pcg_solve_builds_precond_through_the_kernel_on_card(groups):
+    """A short PCG solve on the kernel route (pallas_matvec, bf16, one
+    group or a group per camera) launches schur_precond once per
+    SCHUR_JACOBI build, and lowers the cost."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    prob = make_problem(8, 300, 4, dtype=torch.float32, device="cuda",
+                        perturb_seed=3)
+    if groups == "cam":
+        prob = prob._replace(intrinsics=prob.intrinsics.repeat(8, 1),
+                             obs_group=prob.obs_cam.clone())
+    prob = ba.pad_obs_to_multiple(prob, 512)
+    opts = ba.BAOptions(max_iterations=3, cg_iterations=10, loss="huber",
+                        loss_scale=2.0, function_tolerance=0.0,
+                        pallas_matvec=True, matvec_bf16=True)
+    assert ba.kernel_route(prob, opts).precond == "kernel"
+    reset_dispatch_counts()
+    _, s = ba.bundle_adjust(prob, opts)
+    torch.cuda.synchronize()
+    c = dispatch_counts()
+    assert c["precond.build"] == s.num_iterations
+    assert c.get("precond_kernel", 0) == c["precond.build"]
     assert float(s.final_cost) < float(s.initial_cost)
 
 

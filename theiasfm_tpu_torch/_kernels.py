@@ -68,6 +68,14 @@ _SIGNATURES = {"dense_corr": {
     [_LL, _I, _I, _I, _P],
     "schur_groups_pass2_bf16": [_P, _P, _P] + _STRIDES + [_P] * 11 +
     [_LL, _I, _I, _I, _P],
+}, "schur_precond": {
+    # jc, ji, jp, 6 strides, obs_pt, hinv, cam_order, cam_start, grp_order,
+    # grp_start, cam_rows, grp_rows, g_part, corr_cc, corr_gg, M, P, Nc, Ng,
+    # stream
+    "schur_precond_f32": [_P, _P, _P] + _STRIDES + [_P] * 11 +
+    [_LL, _I, _I, _I, _P],
+    "schur_precond_bf16": [_P, _P, _P] + _STRIDES + [_P] * 11 +
+    [_LL, _I, _I, _I, _P],
 }, "top2_match": {
     # d1, d2, n2, best, second, idx, B, M, N, D, stream
     "top2_match_f32": [_P] * 6 + [_I] * 4 + [_P],

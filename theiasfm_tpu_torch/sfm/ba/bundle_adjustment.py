@@ -23,9 +23,10 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
     ("plain"); make_blocks through ba_blocks (fused_matvec.blocks) or
     fused_matvec.blocks_plain; the dense corrections through
     dense_corr.corr or _dense_schur_corr (the plain build, which also
-    runs where a camera's observations span groups). The hand-written
-    routes dispatch on their tensors' device: the CUDA kernels on the
-    card, their plain twins on the CPU.
+    runs where a camera's observations span groups); the SCHUR_JACOBI
+    corrections through schur_precond.corr or _schur_jacobi_corr. The
+    hand-written routes dispatch on their tensors' device: the CUDA
+    kernels on the card, their plain twins on the CPU.
   * LM trust region with accept/reject and lambda adaptation, as a
     host loop; the CG loop tests its stopping rule on the host once per
     iteration.
@@ -52,7 +53,9 @@ reduction, in PyTorch (port of theiasfm_tpu/sfm/ba/bundle_adjustment.py).
     a solve) and the steps whose candidate cost is not finite, a failed
     factorization's NaN step among them ("dense.factor_failed", read
     with the LM step); dense_corr counts its kernel launches
-    ("dense_corr_kernel", one a build on the kernel route).
+    ("dense_corr_kernel", one a build on the kernel route). The PCG
+    solver counts its SCHUR_JACOBI builds ("precond.build", either
+    route), and schur_precond.corr its launches ("precond_kernel").
 
 The solver runs on the device of the problem's tensors. The JAX
 solver's workarounds for the TPU (flat one-hot einsums, gather-table
@@ -76,6 +79,7 @@ from ...utils.dispatch import count_dispatch, host_sync, phase
 from ...utils.padding import next_bucket
 from . import dense_corr as dcorr
 from . import fused_matvec as fm
+from . import schur_precond as spc
 from .fused_matvec import round_mv
 from .losses import robust_weight
 
@@ -284,6 +288,7 @@ class KernelRoute(NamedTuple):
     matvec: str       # S·v: "one_group", "groups" or "plain"
     blocks: str       # make_blocks' sweep: "kernel" or "plain"
     dense_corr: str   # the dense solver's corrections: "kernel" or "plain"
+    precond: str      # SCHUR_JACOBI's corrections: "kernel" or "plain"
 
 
 def kernel_route(prob: BAProblem, opts: BAOptions) -> KernelRoute:
@@ -301,6 +306,9 @@ def kernel_route(prob: BAProblem, opts: BAOptions) -> KernelRoute:
         one device; else "plain" (_dense_schur_corr). A solve whose
         cameras' observations span groups still builds plainly
         (dense_corr.pair_layout says so once a solve).
+      * precond: "kernel" (schur_precond.corr) for the SCHUR_JACOBI
+        preconditioner of the PCG solver where matvec is "one_group" or
+        "groups" on one device; else "plain" (_schur_jacobi_corr).
 
     No device enters: each hand-written sweep runs the CUDA kernel on the
     card and its plain twin on the CPU."""
@@ -316,7 +324,10 @@ def kernel_route(prob: BAProblem, opts: BAOptions) -> KernelRoute:
               one_device else "plain")
     dense_corr = ("kernel" if opts.linear_solver == "dense_schur" and f32
                   and one_device else "plain")
-    return KernelRoute(matvec, blocks, dense_corr)
+    precond = ("kernel" if opts.preconditioner == "schur_jacobi" and
+               opts.linear_solver == "pcg" and matvec != "plain" and
+               one_device else "plain")
+    return KernelRoute(matvec, blocks, dense_corr, precond)
 
 
 def bundle_adjust(prob: BAProblem, opts: BAOptions):
@@ -616,26 +627,18 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
             # (camera, point) pair has at most one observation); the
             # per-obs intermediates are rounded to the matvec type,
             # the inverses stay full precision
-            Jc3, Ji3, Jp3 = J3 if J3 is not None else widened()
-            H9 = round_mv(Hpp_inv[obs_pt], mv).reshape(M, 3, 3)
-            U = round_mv(torch.einsum("mka,mkc->mac", Jc3, Jp3), mv)
-            T = round_mv(torch.einsum("mac,mce->mae", U, H9), mv)
-            D = torch.einsum("mac,mbc->mab", T, U).reshape(M, 36)
-            Scc_corr = seg_cam(D).reshape(Nc, 6, 6)
-            Scc = Hcc + lam * _diagonal_only(Hcc) - Scc_corr + 1e-10 * eye6
-            Pc_inv = torch.linalg.inv_ex(Scc)[0]
-            if Ng == 1:
-                Ug = round_mv(torch.einsum("mkp,mkc->mpc", Ji3, Jp3), mv)
-                Tg = round_mv(torch.einsum("mpc,mce->mpe", Ug, H9), mv)
-                G2 = _psum(Tg.reshape(M, 3 * P).T @ Ug.reshape(M, 3 * P))
-                Sgg_corr = torch.diagonal(G2.reshape(P, 3, P, 3),
-                                          dim1=1, dim2=3).sum(-1)[None]
+            count_dispatch("precond.build")
+            if route.precond == "kernel":
+                Scc_corr, Sgg_corr = spc.corr(jc_k, ji_k, jp_k, obs_pt,
+                                              Hpp_inv, Nc, Ng, cam_index,
+                                              grp_index)
             else:
-                Wg = round_mv(torch.einsum("mkc,mkp->mcp", Jp3, Ji3), mv)
-                HWg = round_mv(torch.einsum("mdc,mcp->mdp", H9, Wg), mv)
-                Sgg_corr = seg_grp(torch.einsum("mcp,mcq->mpq", Wg, HWg))
+                Scc_corr, Sgg_corr = _schur_jacobi_corr(
+                    *(J3 if J3 is not None else widened()), Hpp_inv,
+                    obs_cam, obs_group, obs_pt, Nc, Ng, mv, _psum)
+            Scc = Hcc + lam * _diagonal_only(Hcc) - Scc_corr + 1e-10 * eye6
             Sgg = Hgg + lam * _diagonal_only(Hgg) - Sgg_corr + 1e-10 * eyeP
-            return Pc_inv, torch.linalg.inv_ex(Sgg)[0]
+            return torch.linalg.inv_ex(Scc)[0], torch.linalg.inv_ex(Sgg)[0]
 
         if rebuild_precond is False:
             # stale-on-reject reuse: only the CG convergence rate is
@@ -810,6 +813,38 @@ def _bundle_adjust(prob: BAProblem, opts: BAOptions,
     return out, BASummary(initial_cost=cost0, final_cost=cost,
                           num_iterations=it, final_lambda=lam,
                           cost_trace=trace)
+
+
+# --------------------------------------------------------------------------
+# SCHUR_JACOBI, plain route
+
+
+def _schur_jacobi_corr(Jc3, Ji3, Jp3, Hpp_inv, obs_cam, obs_group, obs_pt,
+                       n_cams, n_groups, mv, psum):
+    """The SCHUR_JACOBI corrections of the plain route: per observation
+    U = Jcᵀ Jp, T = U Hpp⁻¹[pt] and T Uᵀ as batched einsums (H9, U, T,
+    and Ug, Tg or Wg, HWg rounded to the matvec type mv), summed with
+    index_add_ into (n_cams, 6, 6) and (n_groups, P, P); psum completes
+    the sums over a mesh. Jc3 (M, 2, 6), Ji3 (M, 2, P), Jp3 (M, 2, 3) in
+    the parameters' type."""
+    M, P = Jc3.shape[0], Ji3.shape[2]
+    H9 = round_mv(Hpp_inv[obs_pt], mv).reshape(M, 3, 3)
+    U = round_mv(torch.einsum("mka,mkc->mac", Jc3, Jp3), mv)
+    T = round_mv(torch.einsum("mac,mce->mae", U, H9), mv)
+    D = torch.einsum("mac,mbc->mab", T, U).reshape(M, 36)
+    cc = torch.zeros((n_cams, 36), dtype=D.dtype, device=D.device)
+    Scc_corr = psum(cc.index_add_(0, obs_cam, D)).reshape(n_cams, 6, 6)
+    if n_groups == 1:
+        Ug = round_mv(torch.einsum("mkp,mkc->mpc", Ji3, Jp3), mv)
+        Tg = round_mv(torch.einsum("mpc,mce->mpe", Ug, H9), mv)
+        G2 = psum(Tg.reshape(M, 3 * P).T @ Ug.reshape(M, 3 * P))
+        return Scc_corr, torch.diagonal(G2.reshape(P, 3, P, 3),
+                                        dim1=1, dim2=3).sum(-1)[None]
+    Wg = round_mv(torch.einsum("mkc,mkp->mcp", Jp3, Ji3), mv)
+    HWg = round_mv(torch.einsum("mdc,mcp->mdp", H9, Wg), mv)
+    gg = torch.zeros((n_groups, P, P), dtype=D.dtype, device=D.device)
+    return Scc_corr, psum(gg.index_add_(
+        0, obs_group, torch.einsum("mcp,mcq->mpq", Wg, HWg)))
 
 
 # --------------------------------------------------------------------------
